@@ -7,8 +7,8 @@ shared library with a plain C interface, at first use, into
 module is imported: the CPU tests import every module and never launch a
 kernel.
 
-``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+Each wrapper counts its launches in ``utils/log.py``'s ``COUNTS``
+(``launch.<kernel>``) where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -16,36 +16,24 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import threading
 from pathlib import Path
 
-from bella_tpu_torch.utils import shlib
+from bella_tpu_torch.utils import log, shlib
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-# launch counts of the main path's kernels (K1 static band, K2 adaptive,
-# K3 extension prep), and of the x-drop launches that took the long-key
-# instantiation
-LAUNCHES = {"xdrop_static": 0, "xdrop_adaptive": 0, "ext_prep": 0,
-            "xdrop_static_long_key": 0, "xdrop_adaptive_long_key": 0}
-
-_COUNT_LOCK = threading.Lock()  # shards on distinct cards launch at once
+# the main path's kernels (K1 static band, K2 adaptive, K3 extension
+# prep) and the x-drop launches that took the long-key instantiation
+KERNELS = ("xdrop_static", "xdrop_adaptive", "ext_prep",
+           "xdrop_static_long_key", "xdrop_adaptive_long_key")
 
 
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def count_launch(name: str) -> None:
-    """Add one launch of kernel `name`."""
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+def launches() -> dict:
+    """Launches by kernel since the log's last reset, every kernel named."""
+    return {k: log.COUNTS.get("launch." + k, 0) for k in KERNELS}
 
 
 def _nvcc() -> str:

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from bella_tpu_torch.utils.log import count
+
 NINF = -(1 << 20)
 MATCH, MISMATCH, GAP = 1, -1, -1
 MAX_BAND = 4096            # lanes per block the kernel's reduction key holds
@@ -67,6 +69,14 @@ def unpack_words(words: torch.Tensor) -> torch.Tensor:
     return c.reshape(B, Wp * 16).to(torch.uint8)
 
 
+def host_int(t: torch.Tensor) -> int:
+    """int(t), counted as a host sync (sync.align) where t lies on the
+    card: the host waits for the card to compute it."""
+    if t.is_cuda:
+        count("sync.align")
+    return int(t)
+
+
 def _check(Tw, t_len, Qw, q_len, xdrop: int, W: int) -> int:
     """Raise on inputs the kernel does not take; returns the longest
     length (0 for an empty batch)."""
@@ -88,11 +98,12 @@ def _check(Tw, t_len, Qw, q_len, xdrop: int, W: int) -> int:
     if not 0 <= xdrop < MAX_EXTENT:
         raise ValueError(f"xdrop {xdrop} outside [0, {MAX_EXTENT})")
     if B:
-        if int(t_len.max()) > 16 * Tw.shape[1] or int(q_len.max()) > 16 * Qw.shape[1]:
+        if (host_int(t_len.max()) > 16 * Tw.shape[1]
+                or host_int(q_len.max()) > 16 * Qw.shape[1]):
             raise ValueError("a length exceeds its word row")
-        if int(t_len.min()) < 0 or int(q_len.min()) < 0:
+        if host_int(t_len.min()) < 0 or host_int(q_len.min()) < 0:
             raise ValueError("negative length")
-        longest = max(int(t_len.max()), int(q_len.max()))
+        longest = max(host_int(t_len.max()), host_int(q_len.max()))
         if longest >= MAX_EXTENT:
             raise ValueError(f"lengths must be below {MAX_EXTENT}")
         return longest
@@ -166,10 +177,10 @@ def launch_xdrop(Tw, t_len, Qw, q_len, xdrop: int, W: int, cap: int,
         )
     if rc != 0:
         raise RuntimeError(f"x-drop kernel launch failed: CUDA error {rc}")
-    name = "xdrop_adaptive" if adaptive else "xdrop_static"
-    _build.count_launch(name)
+    name = "launch.xdrop_adaptive" if adaptive else "launch.xdrop_static"
+    count(name)
     if long_key:
-        _build.count_launch(name + "_long_key")
+        count(name + "_long_key")
     return out
 
 

@@ -40,7 +40,7 @@ from bella_tpu_torch.align.pallas_xdrop import (
     extend_batch_packed, pack_words as _pack_rows, run_xdrop, xdrop_plain,
     _check,
 )
-from bella_tpu_torch.utils.log import log
+from bella_tpu_torch.utils.log import count, log, span
 
 
 # ----------------------------------------------------------------------
@@ -167,15 +167,33 @@ class _Reads:
     lens: torch.Tensor     # (R,) int64
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """a on `device`: from pageable memory, so on a card the host waits
+    for the copy (counted as sync.align)."""
+    t = torch.from_numpy(a).to(device)
+    if t.is_cuda:
+        count("sync.align")
+    return t
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """t on the host: a wait for the card where t lies on it (counted as
+    sync.align)."""
+    if t.is_cuda:
+        count("sync.align")
+    return t.cpu().numpy()
+
+
 def _upload_reads(reads, device) -> _Reads:
-    flat, off_w = pack_words_ragged(reads)
-    if flat.size == 0:
-        flat = np.zeros(1, np.uint32)
-    return _Reads(
-        words=torch.from_numpy(flat.view(np.int32).copy()).to(device),
-        off_w=torch.from_numpy(off_w.astype(np.int64)).to(device),
-        lens=torch.from_numpy(reads.lengths.astype(np.int64)).to(device),
-    )
+    with span("align.upload"):
+        flat, off_w = pack_words_ragged(reads)
+        if flat.size == 0:
+            flat = np.zeros(1, np.uint32)
+        return _Reads(
+            words=_upload(flat.view(np.int32).copy(), device),
+            off_w=_upload(off_w.astype(np.int64), device),
+            lens=_upload(reads.lengths.astype(np.int64), device),
+        )
 
 
 def _gather_words(rd: _Reads, rid, start, step, comp, n, L: int):
@@ -199,7 +217,7 @@ def _pair_block(pairs, rows: np.ndarray, device) -> torch.Tensor:
     blk = np.stack([pairs.read_h[rows], pairs.read_v[rows],
                     pairs.pos_h[rows], pairs.pos_v[rows],
                     pairs.seed_rc[rows]]).astype(np.int32)
-    return torch.from_numpy(blk).to(device)
+    return _upload(blk, device)
 
 
 def _check_prep(rd: _Reads, blk, L: int) -> None:
@@ -288,7 +306,7 @@ def launch_prep(rd: _Reads, blk, k: int, L: int) -> dict:
     if rc != 0:
         raise RuntimeError(f"extension prep kernel launch failed: CUDA "
                            f"error {rc}")
-    _build.count_launch("ext_prep")
+    count("launch.ext_prep")
     return out
 
 
@@ -333,14 +351,17 @@ def extension_batches(rd: _Reads, pairs, sel: np.ndarray,
     stacked, so both directions of a batch go through ONE kernel launch
     of 2B extensions; the seed ends; and L, the batch's width in bases,
     from the host's pair_len (max of the two read lengths of each pair):
-    no wait for the card."""
+    no wait for the card. Each batch lies in a span, align.batch, that
+    stays open while the caller works on it, until it asks for the next
+    batch."""
     order = np.argsort(pair_len[sel], kind="stable")
     dev = rd.lens.device
     for s in range(0, len(sel), batch_size):
-        idx = order[s:s + batch_size]
-        rows = sel[idx]
-        L = max(16, -(-int(pair_len[rows].max()) // 16) * 16)
-        yield idx, prepare_batch(rd, _pair_block(pairs, rows, dev), k, L)
+        with span("align.batch"):
+            idx = order[s:s + batch_size]
+            rows = sel[idx]
+            L = max(16, -(-int(pair_len[rows].max()) // 16) * 16)
+            yield idx, prepare_batch(rd, _pair_block(pairs, rows, dev), k, L)
 
 
 def _extend_pairs(rd: _Reads, pairs, sel: np.ndarray, pair_len: np.ndarray,
@@ -367,7 +388,8 @@ def _extend_pairs(rd: _Reads, pairs, sel: np.ndarray, pair_len: np.ndarray,
         B = len(idx)
         parts.append(_combine_extensions(ext, res[:, :B], res[:, B:]))
         idxs.append(idx)
-    out[:, np.concatenate(idxs)] = torch.cat(parts, dim=1).cpu().numpy()
+    with span("align.collect"):
+        out[:, np.concatenate(idxs)] = _download(torch.cat(parts, dim=1))
     return out
 
 
@@ -457,15 +479,13 @@ def align_candidates(
 def _gather_shares(mesh, share) -> list:
     """Every rank's share result, on every rank."""
     sel, rows, level_counts, tail, rescued = share
-    i64 = torch.int64
     dev = mesh.devices[0]
-    got = mesh.gather([torch.from_numpy(np.vstack([sel, rows]).T.astype(
-        np.int64)).to(dev)]).cpu().numpy()
-    lv = mesh.gather([torch.tensor(
-        [[b, c] for b, c in level_counts] + [[0, rescued]], dtype=i64,
-        device=dev).reshape(-1, 2)]).cpu().numpy()
-    tl = mesh.gather([torch.from_numpy(tail.astype(np.int64)).to(dev)]
-                     ).cpu().numpy()
+    got = _download(mesh.gather([_upload(
+        np.vstack([sel, rows]).T.astype(np.int64), dev)]))
+    lv = _download(mesh.gather([_upload(np.array(
+        [[b, c] for b, c in level_counts] + [[0, rescued]],
+        np.int64).reshape(-1, 2), dev)]))
+    tl = _download(mesh.gather([_upload(tail.astype(np.int64), dev)]))
     return [(got[:, 0], got[:, 1:].T.astype(np.int32),
              [(int(b), int(c)) for b, c in lv if b > 0], tl,
              int(lv[lv[:, 0] == 0, 1].sum()))]
@@ -508,46 +528,50 @@ def _align_share(rd: _Reads, pairs, sel: np.ndarray, pair_len, config,
     level_counts = []
     tail = np.zeros(0, np.int64)
     if len(sat_idx) and config.band_rescue:
-        ceiling = max(int(config.rescue_ceiling), 2 * pallas_band)
-        rescue_band = 2 * pallas_band
-        sat_level = sat.copy()
-        due = np.full(len(sat_idx), rescue_band, np.int64)
-        if config.rescue_predict:
-            e_obs = np.maximum(
-                np.maximum(end_h[sat_idx] - beg_h[sat_idx],
-                           end_v[sat_idx] - beg_v[sat_idx]),
-                1,
-            ).astype(np.float64)
-            e_pred = np.maximum(
-                pairs.overlap_est[sel[sat_idx]].astype(np.float64), e_obs
-            ) if pairs.overlap_est.size else e_obs
-            due = _predict_due(sat[sat_idx], e_obs, e_pred, rescue_band,
-                               ceiling)
-        while len(sat_idx) and rescue_band <= ceiling:
-            at_level = due <= rescue_band
-            cur = sat_idx[at_level]
-            if not len(cur):
+        with span("align.cascade"):
+            ceiling = max(int(config.rescue_ceiling), 2 * pallas_band)
+            rescue_band = 2 * pallas_band
+            sat_level = sat.copy()
+            due = np.full(len(sat_idx), rescue_band, np.int64)
+            if config.rescue_predict:
+                e_obs = np.maximum(
+                    np.maximum(end_h[sat_idx] - beg_h[sat_idx],
+                               end_v[sat_idx] - beg_v[sat_idx]),
+                    1,
+                ).astype(np.float64)
+                e_pred = np.maximum(
+                    pairs.overlap_est[sel[sat_idx]].astype(np.float64), e_obs
+                ) if pairs.overlap_est.size else e_obs
+                due = _predict_due(sat[sat_idx], e_obs, e_pred, rescue_band,
+                                   ceiling)
+            while len(sat_idx) and rescue_band <= ceiling:
+                at_level = due <= rescue_band
+                cur = sat_idx[at_level]
+                if not len(cur):
+                    rescue_band *= 2
+                    continue
+                level_counts.append((rescue_band, len(cur)))
+                res = extend(cur, rescue_band, max_steps)
+                sat_level[cur] = res[5]
+                better = res[0] >= score[cur]
+                upd = cur[better]
+                score[upd], beg_h[upd], end_h[upd] = res[0, better], res[1, better], res[2, better]
+                beg_v[upd], end_v[upd], sat[upd] = res[3, better], res[4, better], res[5, better]
+                # pairs extended at THIS level and still saturated walk on;
+                # predicted-later pairs stay pending untouched
+                still = at_level & (sat_level[sat_idx] >= rescue_band // 2 - 2)
+                count("cascade.extended", len(cur))
+                count("cascade.settled", len(cur) - int(still.sum()))
+                keep = still | ~at_level
+                due = np.where(still, rescue_band * 2, due)[keep]
+                sat_idx = sat_idx[keep]
                 rescue_band *= 2
-                continue
-            level_counts.append((rescue_band, len(cur)))
-            res = extend(cur, rescue_band, max_steps)
-            sat_level[cur] = res[5]
-            better = res[0] >= score[cur]
-            upd = cur[better]
-            score[upd], beg_h[upd], end_h[upd] = res[0, better], res[1, better], res[2, better]
-            beg_v[upd], end_v[upd], sat[upd] = res[3, better], res[4, better], res[5, better]
-            # pairs extended at THIS level and still saturated walk on;
-            # predicted-later pairs stay pending untouched
-            still = at_level & (sat_level[sat_idx] >= rescue_band // 2 - 2)
-            keep = still | ~at_level
-            due = np.where(still, rescue_band * 2, due)[keep]
-            sat_idx = sat_idx[keep]
-            rescue_band *= 2
         if len(sat_idx):
-            _adaptive_tail_rescue(
-                rd, pairs, sel, sat_idx, pair_len, config, score, beg_h,
-                end_h, beg_v, end_v, batch_size,
-            )
+            with span("align.tail"):
+                _adaptive_tail_rescue(
+                    rd, pairs, sel, sat_idx, pair_len, config, score, beg_h,
+                    end_h, beg_v, end_v, batch_size,
+                )
             tail = sel[sat_idx]
     return (sel, np.stack([score, beg_h, end_h, beg_v, end_v]),
             level_counts, tail, rescued)

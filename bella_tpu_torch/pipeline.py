@@ -37,7 +37,7 @@ from bella_tpu_torch.parallel import (
     detect_overlaps_sharded, make_mesh, sharded_candidates,
 )
 from bella_tpu_torch.utils import selfcheck
-from bella_tpu_torch.utils.log import log, phase
+from bella_tpu_torch.utils.log import PHASE_SECONDS, log, phase
 
 
 @dataclasses.dataclass
@@ -189,7 +189,8 @@ def run_pipeline(reads: ReadSet, config: BellaConfig,
     run over (make_mesh, or init_distributed's process group, where rank
     0 writes the output); without one, config.devices > 1 takes one
     shard a card (shard_group). With config.profile_dir the run is traced
-    by torch.profiler into <profile_dir>/trace.json (Chrome format)."""
+    by torch.profiler into <profile_dir>/trace.json (Chrome format), with
+    the port's bella.* spans (utils/log.py) beside the card's kernels."""
     dev = resolve_device(device)
     mesh = shard_group(config, dev, mesh)
     if mesh is not None:
@@ -243,15 +244,13 @@ def _run(reads: ReadSet, config: BellaConfig, output: Optional[str],
             else:
                 rows = writers.overlap_only_rows(pairs, reads)
     else:
-        import time
-
-        t_aln = time.perf_counter()
+        before = PHASE_SECONDS.get("alignment", 0.0)
         with phase("alignment"):
             aln = align_candidates(
                 None, reads.lengths.astype(np.int32), pairs, config,
                 reads=reads, device=dev, mesh=mesh,
             )
-        dt_aln = time.perf_counter() - t_aln
+        dt_aln = PHASE_SECONDS["alignment"] - before
         if pairs.num_pairs and dt_aln > 0:
             aligned_bases = int(
                 (aln.end_h - aln.beg_h).sum() + (aln.end_v - aln.beg_v).sum()

@@ -656,11 +656,10 @@ def run_main(reads, config, label: str, state: dict, truth=None, mesh=None):
         kernel_spans, op_spans, span_ms,
     )
 
-    ulog.PHASE_SECONDS.clear()
     for d in cards(mesh):
         torch.cuda.reset_peak_memory_stats(d)
         torch.cuda.synchronize(d)
-    _build.reset_launches()
+    ulog.reset()
     t0 = time.perf_counter()
     with kernel_spans() as spans, op_spans(SLICE_OPS, CAPTURED) as (ops,
                                                                  checks):
@@ -668,7 +667,7 @@ def run_main(reads, config, label: str, state: dict, truth=None, mesh=None):
     for d in cards(mesh):
         torch.cuda.synchronize(d)
     wall = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
+    counts = _build.launches()
     op_ms = {k: span_ms(v) for k, v in ops.items()}
     kernel_ms = {k: 0.0 for k in counts}
     by_band, by_shard = {}, {}
@@ -1068,10 +1067,10 @@ def phase_long(state: dict) -> None:
     for name, adaptive in (("K1", False), ("K2", True)):
         W, cap = _long_args(adaptive)
         count = ("xdrop_adaptive" if adaptive else "xdrop_static") + "_long_key"
-        before = _build.LAUNCHES[count]
+        before = _build.launches()[count]
         out = P.run_xdrop(Tw, tl, Qw, ql, LONG_XDROP, W, cap, adaptive,
                           with_steps=True)
-        if _build.LAUNCHES[count] != before + 1:
+        if _build.launches()[count] != before + 1:
             raise AssertionError(f"{name}: the wrapper took the int32 key "
                                  "above 2^17")
         ms = cuda_ms(lambda: P.run_xdrop(Tw, tl, Qw, ql, LONG_XDROP, W, cap,
@@ -1109,10 +1108,10 @@ def phase_long(state: dict) -> None:
             print(f"{'K2' if adaptive else 'K1'} W={W}: max |long key - int32 "
                   f"key| = {e} over 48 pairs (score, ends, steps)")
     # below 2^17 the wrappers take the int32 key
-    before = dict(_build.LAUNCHES)
+    before = _build.launches()
     P.extend_batch_packed(Twb, tlb, Qwb, qlb, 25, band=128)
     P.run_xdrop(Twb, tlb, Qwb, qlb, 25, 128, 6000, True)
-    took = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    took = {k: v - before[k] for k, v in _build.launches().items()}
     print(f"wrappers below 2^17: launches {took}")
     if took != {"xdrop_static": 1, "xdrop_adaptive": 1, "ext_prep": 0,
                 "xdrop_static_long_key": 0, "xdrop_adaptive_long_key": 0}:
@@ -1869,19 +1868,19 @@ def phase_native(state: dict) -> None:
     if not all(same.values()):
         raise AssertionError("the native parse differs from numpy's")
     out = os.path.join(state["work"], "demo_native.out")
-    ulog.PHASE_SECONDS.clear()
-    _build.reset_launches()
+    ulog.reset()
     t0 = time.perf_counter()
     res = run_files(path, BellaConfig(), out)
     wall = time.perf_counter() - t0
     secs = dict(ulog.PHASE_SECONDS)
+    launches = _build.launches()
     with open(out, "rb") as f:
         got = f.read()
     ok = (got == "".join(state["demo_rows"]).encode()
           and res.num_output == DEMO_ANCHORS["rows"]
-          and _build.LAUNCHES["xdrop_static"] > 0
-          and _build.LAUNCHES["ext_prep"] == _build.LAUNCHES["xdrop_static"]
-          + _build.LAUNCHES["xdrop_adaptive"])
+          and launches["xdrop_static"] > 0
+          and launches["ext_prep"] == launches["xdrop_static"]
+          + launches["xdrop_adaptive"])
     info = dict(device="cuda:0", bytes=len(got), rows=res.num_output,
                 wall_s=wall,
                 build_s=build_s, fastq_bytes=os.path.getsize(path),
@@ -1889,7 +1888,7 @@ def phase_native(state: dict) -> None:
                 outputting_native_s=secs.get("outputting"),
                 outputting_python_s=state["runs"]["demo"]["phase_s"].get(
                     "outputting"),
-                launches=dict(_build.LAUNCHES))
+                launches=launches)
     print("native " + json.dumps(info), flush=True)
     state["native"] = info
     print(f"run_files with the native parser and writer: {res.num_output} "

@@ -88,6 +88,7 @@ def run(workdir: str, backend: str, dev, genome: int, n_reads: int) -> dict:
     from bella_tpu_torch.config import BellaConfig
     from bella_tpu_torch.io.simulate import write_fastq, write_truth
     from bella_tpu_torch.pipeline import run_pipeline
+    from bella_tpu_torch.utils import log as ulog
 
     reads, truth = corpus(genome, n_reads)
     fq = os.path.join(workdir, "rep.fastq")
@@ -98,7 +99,7 @@ def run(workdir: str, backend: str, dev, genome: int, n_reads: int) -> dict:
     with open(fofn, "w") as f:
         f.write(fq + "\n")
     out = os.path.join(workdir, "rep_torch.out")
-    _build.reset_launches()
+    ulog.reset()
     t0 = clock(dev)
     res = run_pipeline(reads, BellaConfig(aligner_backend=BACKENDS[backend]),
                        out, device=dev)
@@ -107,7 +108,7 @@ def run(workdir: str, backend: str, dev, genome: int, n_reads: int) -> dict:
         rows = sum(1 for _ in f)
     row = dict(reads=reads.num_reads, bases=int(reads.lengths.sum()),
                nnzA=int(res.nnz), pairs=int(res.pairs.num_pairs), rows=rows,
-               wall_s=wall, launches=dict(_build.LAUNCHES),
+               wall_s=wall, launches=_build.launches(),
                port=score(out, truth_path))
     refbin = os.path.join(ROOT, ".refbuild", "bella")
     if os.path.exists(refbin):

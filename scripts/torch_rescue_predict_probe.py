@@ -56,11 +56,12 @@ def align_decide(reads, pairs, config, dev, reps: int):
     from bella_tpu_torch.align import _build
     from bella_tpu_torch.align.xdrop import align_candidates
     from bella_tpu_torch.overlap.decision import post_align_decision
+    from bella_tpu_torch.utils import log as ulog
 
     lens = reads.lengths.astype(np.int32)
     dts = []
     for i in range(reps + 1):
-        _build.reset_launches()
+        ulog.reset()
         t0 = clock(dev)
         aln = align_candidates(None, lens, pairs, config, reads=reads,
                                device=dev)
@@ -68,7 +69,7 @@ def align_decide(reads, pairs, config, dev, reps: int):
                                   reads.lengths, config)
         if i:
             dts.append(clock(dev) - t0)
-    return aln, dec, dts, dict(_build.LAUNCHES)
+    return aln, dec, dts, _build.launches()
 
 
 def main(argv=None) -> int:

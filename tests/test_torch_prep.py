@@ -221,7 +221,7 @@ def test_prep_on_card_raises_when_the_kernel_cannot_be_built(monkeypatch):
     monkeypatch.setattr(_build, "build", broken)
     monkeypatch.setattr(X, "prepare_batch_plain", plain)
     monkeypatch.setattr(X, "_gather_words", plain)
-    before = _build.LAUNCHES["ext_prep"]
+    before = _build.launches()["ext_prep"]
     with pytest.raises(RuntimeError, match="xdrop.cu"):
         X.prepare_batch(card, blk, k, 3008)
-    assert _build.LAUNCHES["ext_prep"] == before
+    assert _build.launches()["ext_prep"] == before
