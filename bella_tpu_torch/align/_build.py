@@ -25,8 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the main path's kernels (K1 static band, K2 adaptive, K3 extension
-# prep) and the x-drop launches that took the long-key instantiation
+# the kernels (K1 static band, K2 adaptive: the main path's; K3 extension
+# prep: the tests' and tools' materialised streams) and the x-drop
+# launches that took the long-key instantiation
 KERNELS = ("xdrop_static", "xdrop_adaptive", "ext_prep",
            "xdrop_static_long_key", "xdrop_adaptive_long_key")
 
@@ -60,7 +61,7 @@ def build(source: str) -> Path:
 def _bind_xdrop(lib: ctypes.CDLL) -> None:
     fn = lib.bella_xdrop_launch
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [vp, vp, ll, ll, vp, vp, vp, vp, i, i, i, i, i, i,
+    fn.argtypes = [vp, ll, vp, vp, ll, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                    vp, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
     lib.bella_xdrop_slots.argtypes = [i, i]
@@ -71,6 +72,6 @@ def _bind_xdrop(lib: ctypes.CDLL) -> None:
 
 
 def xdrop_lib() -> ctypes.CDLL:
-    """The kernel library (csrc/xdrop.cu: K1, K2 and K3), built on first
-    use."""
+    """The kernel library (csrc/xdrop.cu: K1 and K2, and K3), built on
+    first use."""
     return shlib.load("xdrop", lambda: build("xdrop.cu"), _bind_xdrop)

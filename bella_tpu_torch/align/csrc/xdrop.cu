@@ -1,12 +1,16 @@
 // Banded gapped x-drop extension on Hopper (sm_90a): a warp per extension
 // (a few warps at W > 512), the band in registers, a persistent grid that
-// takes extensions longest first.
+// takes extensions longest first, each extension's bases read straight
+// from a flat word stream through its descriptor.
 //
 // Replaces the Pallas TPU kernel bella_tpu/align/pallas_xdrop.py:_kernel
 // (entries extend_batch_pallas_packed and extend_batch_pallas) in the
 // static mode (K1), and the lax.while_loop of bella_tpu/align/xdrop.py:
-// extend_batch in the adaptive mode (K2). The extension prep that feeds
-// it (K3) follows it in this file, after its own notes.
+// extend_batch in the adaptive mode (K2); on the main path it also does
+// what the extension prep (K3, after its own notes below; bella_tpu's
+// _prepare_extensions_packed) did there: each extension's two streams are
+// descriptors on the reads' ragged word stream, not materialised rows, so
+// a whole cascade level is one launch.
 //
 // What bounds it on the H100: neither bytes nor operations, but the
 // chain of steps. Each extension is a chain of dependent antidiagonals (up
@@ -14,8 +18,12 @@
 // and a launch lasts about as long as its longest extension's chain: one
 // step's latency (about 0.2 us at W = 128 on an H100, for an extension
 // alone on its SM; chip_smoke.py prints it) times its step count,
-// stretched while other warps share the scheduler's issue slots. The
-// design shortens the step and keeps the card's few long chains moving:
+// stretched while other warps share the scheduler's issue slots. A launch
+// that holds a whole level takes every long chain of the level first and
+// ends on its short ones, so the card idles only in the level's one tail.
+// The reads' words (34 MB for a 137-Mbp corpus) stay in the 50 MB L2 and
+// are read once per 16 steps of a thread's window. The design shortens
+// the step and keeps the card's few long chains moving:
 //   * a group of G = ceil(W / (32 * LPT)) warps runs one extension; each
 //     thread holds LPT (4, 8 or 16) consecutive band lanes p = LPT * t + q
 //     of antidiagonals d - 2 and d - 1 in registers, and writes d over
@@ -34,7 +42,14 @@
 //   * the base comparisons of a thread's lanes are one XOR of its T bases
 //     against its Q bases, bit-reversed (Q runs backwards along an
 //     antidiagonal), from a ring of three packed words per row and thread
-//     that loads one word (__ldg) when the thread's window crosses a word;
+//     that loads one word when the thread's window crosses a word;
+//   * a stream's word j (its bases 16 j .. 16 j + 15) is loaded as the
+//     extension prep wrote it: from the descriptor (flat base address of
+//     the stream's base 0, direction +1 or -1, complement flag) two loads
+//     of the flat stream (__ldg, indexes clamped to it), a funnel shift, a
+//     base reversal on -1 streams and a complement; words at or past the
+//     stream's length read 0. A materialised row is the descriptor of
+//     address 16 * row * stride, direction +1, no complement;
 //   * the antidiagonal's max and its lowest lane come from one
 //     __reduce_max_sync (REDUX) of an int32 key, w * span + (span - 1 - p);
 //     while it runs, the next antidiagonal's bases and the new row's
@@ -67,6 +82,8 @@
 //     below best - xdrop or d reaches t_len + q_len;
 //   * cells with i = 0 or j = 0 compare no bases: their diagonal
 //     predecessor is NINF, so the substitution score cannot win there;
+//     cells past a stream's length are invalid, so the bases a word holds
+//     beyond it never count;
 //   * bases are 16 per 32-bit word, least significant first.
 
 #include <cuda_runtime.h>
@@ -105,10 +122,49 @@ __device__ __forceinline__ int lo_static(int d, int W) {
   return x > 0 ? x : 0;
 }
 
-// Word w of a packed row of nw words; 0 outside it.
-__device__ __forceinline__ uint32_t word_at(const uint32_t* row, int w,
-                                            int nw) {
-  return (unsigned)w < (unsigned)nw ? __ldg(row + w) : 0u;
+// The sixteen 2-bit groups of w in reverse order (_revbase_words).
+__device__ __forceinline__ uint32_t reverse_bases(uint32_t w) {
+  w = __brev(w);
+  return ((w >> 1) & 0x55555555u) | ((w & 0x55555555u) << 1);
+}
+
+// One extension stream on a flat word stream of n_words words. Its
+// descriptor `at` is 4 a + 2 back + comp: base t of the stream is flat
+// base a + t (a - t where back), complemented where comp.
+struct Stream {
+  long long a0;  // flat address of word 0's lowest flat base
+  int s16;       // +16 or -16: flat bases from one word to the next
+  int nw;        // words that hold the stream's bases
+  uint32_t x;    // 0, or all ones to complement
+};
+
+__device__ __forceinline__ Stream stream_of(long long at, int n) {
+  Stream s;
+  const bool back = (at & 2) != 0;
+  s.a0 = (at >> 2) - (back ? 15 : 0);
+  s.s16 = back ? -16 : 16;
+  s.nw = (n + 15) >> 4;
+  s.x = (at & 1) ? 0xffffffffu : 0u;
+  return s;
+}
+
+// Word j of stream s (its bases 16 j .. 16 j + 15, the first at the least
+// significant bits); 0 outside the stream's words. Word indexes are
+// clamped to the flat stream: bases read there lie past the stream's
+// length.
+__device__ __forceinline__ uint32_t word_at(const Stream& s,
+                                            const uint32_t* words,
+                                            long long n_words, int j) {
+  if ((unsigned)j >= (unsigned)s.nw) return 0u;
+  const long long a = s.a0 + (long long)s.s16 * j;
+  const long long i0 = a >> 4;
+  const long long lo = i0 < 0 ? 0 : i0 >= n_words ? n_words - 1 : i0;
+  const long long hi =
+      i0 + 1 < 0 ? 0 : i0 + 1 >= n_words ? n_words - 1 : i0 + 1;
+  uint32_t w = __funnelshift_r(__ldg(words + lo), __ldg(words + hi),
+                               2 * (int)(a & 15));
+  if (s.s16 < 0) w = reverse_bases(w);
+  return w ^ s.x;
 }
 
 // Barrier over the G warps of group `grp` only (ids 1.., 0 is the block's).
@@ -191,9 +247,8 @@ __device__ __forceinline__ int2 finish_long(int (&row)[LPT], int nd, int p0,
 
 // One extension's walk, shared by its group's threads.
 struct Walk {
-  const uint32_t* trow;
-  const uint32_t* qrow;
-  int tl, ql, ntw, nqw;
+  Stream ts, qs;
+  int tl, ql;
   int lo_m2, lo_m1, lo;  // lo(d - 2), lo(d - 1), lo(d)
   int d, step;
   int best, best_t, best_q;
@@ -226,21 +281,24 @@ __device__ __forceinline__ uint32_t match_word(uint32_t tb, uint32_t qb) {
 // index either lo(dn) can need, and move by at most one base a step), and
 // the match words for lo(dn) = lp + e (*a0) and lp + 1 (*a1; BOTH only).
 template <int LPT, bool BOTH>
-__device__ __forceinline__ void bases(Walk& x, int lp, int dn, int p0,
-                                      int e, uint32_t* a0, uint32_t* a1) {
+__device__ __forceinline__ void bases(Walk& x, const uint32_t* TW,
+                                      long long t_words, const uint32_t* QW,
+                                      long long q_words, int lp, int dn,
+                                      int p0, int e, uint32_t* a0,
+                                      uint32_t* a1) {
   const int sT = lp + p0 - 1;
   if ((sT >> 4) != x.tw) {
     x.t0 = x.t1;
     x.t1 = x.t2;
     ++x.tw;
-    x.t2 = word_at(x.trow, x.tw + 2, x.ntw);
+    x.t2 = word_at(x.ts, TW, t_words, x.tw + 2);
   }
   const int sQ = dn - lp - 1 - p0 - LPT;
   if ((sQ >> 4) != x.qw) {
     x.q0 = x.q1;
     x.q1 = x.q2;
     ++x.qw;
-    x.q2 = word_at(x.qrow, x.qw + 2, x.nqw);
+    x.q2 = word_at(x.qs, QW, q_words, x.qw + 2);
   }
   const int ot = 2 * (sT & 15);
   const int oq = 2 * (sQ & 15);
@@ -260,7 +318,10 @@ __device__ __forceinline__ void advance(Walk& x, int (&row)[LPT],
                                         const int (&prv)[LPT], int lane,
                                         int warp, int wg, int grp, int p0,
                                         int W, int xdrop,
-                                        int (*xch)[kBlockWarps][4]) {
+                                        int (*xch)[kBlockWarps][4],
+                                        const uint32_t* TW, long long t_words,
+                                        const uint32_t* QW,
+                                        long long q_words) {
   constexpr int kSpan = 32 * LPT * G;
   constexpr int kLog = log2_of(kSpan);
   const int d = x.d;
@@ -312,7 +373,8 @@ __device__ __forceinline__ void advance(Walk& x, int (&row)[LPT],
   if (lane == 31) rn = nd;
   const int lo_next = ADAPTIVE ? lo : lo_static(d + 1, W);
   uint32_t a0, a1 = 0;
-  bases<LPT, ADAPTIVE>(x, lo, d + 1, p0, lo_next - lo, &a0, &a1);
+  bases<LPT, ADAPTIVE>(x, TW, t_words, QW, q_words, lo, d + 1, p0,
+                       lo_next - lo, &a0, &a1);
   if constexpr (G > 1) {
     // one barrier per antidiagonal publishes the warps' keys and edge
     // lanes; they alternate between two slots so the next step's writes
@@ -370,8 +432,10 @@ __device__ __forceinline__ void advance(Walk& x, int (&row)[LPT],
 
 template <bool ADAPTIVE, int LPT, int G, bool LONGKEY>
 __global__ void __launch_bounds__(kBlockThreads)
-xdrop_kernel(const uint32_t* __restrict__ T, const uint32_t* __restrict__ Q,
-             long long t_stride, long long q_stride,
+xdrop_kernel(const uint32_t* __restrict__ TW, long long t_words,
+             const long long* __restrict__ t_at,
+             const uint32_t* __restrict__ QW, long long q_words,
+             const long long* __restrict__ q_at,
              const int* __restrict__ t_len, const int* __restrict__ q_len,
              const int* __restrict__ order, int* __restrict__ next, int B,
              int W, int xdrop, int max_steps,
@@ -403,12 +467,10 @@ xdrop_kernel(const uint32_t* __restrict__ T, const uint32_t* __restrict__ Q,
     const int e = order[k];
 
     Walk x;
-    x.trow = T + (long long)e * t_stride;
-    x.qrow = Q + (long long)e * q_stride;
     x.tl = t_len[e];
     x.ql = q_len[e];
-    x.ntw = (x.tl + 15) >> 4;
-    x.nqw = (x.ql + 15) >> 4;
+    x.ts = stream_of(t_at[e], x.tl);
+    x.qs = stream_of(q_at[e], x.ql);
     x.lo_m2 = x.lo_m1 = x.lo = 0;
     x.d = 2;
     x.step = 0;
@@ -416,14 +478,15 @@ xdrop_kernel(const uint32_t* __restrict__ T, const uint32_t* __restrict__ Q,
     x.alive = x.tl + x.ql > 0;
     x.tw = (p0 - 1) >> 4;                 // windows of d = 2
     x.qw = (1 - p0 - LPT) >> 4;
-    x.t0 = word_at(x.trow, x.tw, x.ntw);
-    x.t1 = word_at(x.trow, x.tw + 1, x.ntw);
-    x.t2 = word_at(x.trow, x.tw + 2, x.ntw);
-    x.q0 = word_at(x.qrow, x.qw, x.nqw);
-    x.q1 = word_at(x.qrow, x.qw + 1, x.nqw);
-    x.q2 = word_at(x.qrow, x.qw + 2, x.nqw);
+    x.t0 = word_at(x.ts, TW, t_words, x.tw);
+    x.t1 = word_at(x.ts, TW, t_words, x.tw + 1);
+    x.t2 = word_at(x.ts, TW, t_words, x.tw + 2);
+    x.q0 = word_at(x.qs, QW, q_words, x.qw);
+    x.q1 = word_at(x.qs, QW, q_words, x.qw + 1);
+    x.q2 = word_at(x.qs, QW, q_words, x.qw + 2);
     uint32_t a0, a1;
-    bases<LPT, false>(x, 0, 2, p0, 0, &a0, &a1);  // lo(2) = 0
+    bases<LPT, false>(x, TW, t_words, QW, q_words, 0, 2, p0, 0, &a0,
+                      &a1);  // lo(2) = 0
     x.add = a0;
     // rows d = 0 and 1 in w = value + d: only lanes 0 and 1 hold values,
     // so every thread's neighbouring lanes are NINF
@@ -443,10 +506,12 @@ xdrop_kernel(const uint32_t* __restrict__ T, const uint32_t* __restrict__ Q,
     for (;;) {
       if (!x.alive || x.step >= max_steps) break;
       advance<ADAPTIVE, LPT, G, LONGKEY>(x, ra, rb, lane, warp, wg, grp, p0,
-                                         W, xdrop, xch);
+                                         W, xdrop, xch, TW, t_words, QW,
+                                         q_words);
       if (!x.alive || x.step >= max_steps) break;
       advance<ADAPTIVE, LPT, G, LONGKEY>(x, rb, ra, lane, warp, wg, grp, p0,
-                                         W, xdrop, xch);
+                                         W, xdrop, xch, TW, t_words, QW,
+                                         q_words);
     }
     if (wg == 0 && lane == 0) {
       score_out[e] = x.best;
@@ -458,8 +523,12 @@ xdrop_kernel(const uint32_t* __restrict__ T, const uint32_t* __restrict__ Q,
 }
 
 struct Args {
-  const uint32_t *T, *Q;
-  long long t_stride, q_stride;
+  const uint32_t* TW;
+  long long t_words;
+  const long long* t_at;
+  const uint32_t* QW;
+  long long q_words;
+  const long long* q_at;
   const int *t_len, *q_len, *order;
   int* next;
   int B, W, xdrop, max_steps;
@@ -493,7 +562,8 @@ int launch_t(const Args& a, cudaStream_t s) {
   const long long need = ((long long)a.B + groups - 1) / groups;
   if (blocks > need) blocks = (int)need;
   xdrop_kernel<A, LPT, G, LK><<<blocks, kBlockThreads, 0, s>>>(
-      a.T, a.Q, a.t_stride, a.q_stride, a.t_len, a.q_len, a.order, a.next,
+      a.TW, a.t_words, a.t_at, a.QW, a.q_words, a.q_at, a.t_len, a.q_len,
+      a.order, a.next,
       a.B, a.W, a.xdrop, a.max_steps, a.score, a.t_end, a.q_end, a.steps);
   return (int)cudaGetLastError();
 }
@@ -530,13 +600,17 @@ int dispatch(const Args& a, cudaStream_t s, int* slots) {
 }  // namespace
 
 // Launches the persistent x-drop kernel on `stream`. Pointers are device
-// pointers; T and Q are (B, stride) uint32 word matrices; `order` is a
-// permutation of 0..B-1 (the order extensions are taken in) and `next` one
-// int32 that must be 0; steps may be null. long_key selects the long-key
-// instantiation (needed once a length or xdrop reaches 2^17). Returns
+// pointers; TW and QW are flat uint32 word streams of t_words and q_words
+// words (16 bases a word, least significant first); t_at and q_at (B,)
+// int64 the extensions' stream descriptors on them (see Stream), t_len
+// and q_len (B,) int32 their lengths; `order` is a permutation of 0..B-1
+// (the order extensions are taken in) and `next` one int32 that must be
+// 0; steps may be null. long_key selects the long-key instantiation
+// (needed once a length or xdrop reaches 2^17). Returns
 // cudaGetLastError() after the launch.
-extern "C" int bella_xdrop_launch(const void* T, const void* Q,
-                                  long long t_stride, long long q_stride,
+extern "C" int bella_xdrop_launch(const void* TW, long long t_words,
+                                  const void* t_at, const void* QW,
+                                  long long q_words, const void* q_at,
                                   const void* t_len, const void* q_len,
                                   const void* order, void* next, int B,
                                   int W, int xdrop, int max_steps,
@@ -544,7 +618,8 @@ extern "C" int bella_xdrop_launch(const void* T, const void* Q,
                                   void* t_end, void* q_end, void* steps,
                                   void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  const Args a{(const uint32_t*)T, (const uint32_t*)Q, t_stride, q_stride,
+  const Args a{(const uint32_t*)TW, t_words, (const long long*)t_at,
+               (const uint32_t*)QW, q_words, (const long long*)q_at,
                (const int*)t_len, (const int*)q_len, (const int*)order,
                (int*)next, B, W, xdrop, max_steps, (int*)score,
                (int*)t_end, (int*)q_end, (int*)steps};
@@ -560,8 +635,9 @@ extern "C" int bella_xdrop_launch(const void* T, const void* Q,
 // grid's warp groups) for the int32-key instantiation, or -1 when the
 // occupancy query fails.
 extern "C" int bella_xdrop_slots(int W, int adaptive) {
-  const Args a{nullptr, nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr,
-               0, W, 0, 0, nullptr, nullptr, nullptr, nullptr};
+  const Args a{nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, nullptr,
+               nullptr, nullptr, 0, W, 0, 0, nullptr, nullptr, nullptr,
+               nullptr};
   int slots = -1;
   if (adaptive)
     dispatch<true, false>(a, nullptr, &slots);
@@ -574,6 +650,12 @@ extern "C" int bella_xdrop_slots(int W, int adaptive) {
 // seed of a batch, built as packed words straight from the ragged word
 // stream of the reads, one thread per output word.
 //
+// Off the main path: the x-drop kernel above reads the same words through
+// each extension's descriptor (word_at computes what a thread of K3
+// writes). K3 stays as the materialised form of the streams, which the
+// card's tests and chip_smoke.py hold the descriptor-fed kernel to, and
+// for the tools that time a batch's streams apart from its extension.
+//
 // Replaces the XLA prep that bella_tpu fuses into the Pallas aligner's
 // program (bella_tpu/align/xdrop.py: _prepare_extensions_packed with
 // _expand_words, _reverse_rows_w and _lshift_rows_w, inside
@@ -585,9 +667,10 @@ extern "C" int bella_xdrop_slots(int W, int adaptive) {
 // input words (mostly from L1/L2: neighbouring threads share them), a
 // funnel shift, at most a bit reversal, an xor and a mask, against 4
 // bytes written; the batch's T and Q words, written once, and the words
-// of the batch's distinct reads, read once, set the least time. The TPU path's barrel shifts (a
-// log2(L/16)-step cascade of whole-row selects per stream) exist because
-// gathers are slow there; here every thread computes its own word:
+// of the batch's distinct reads, read once, set the least time. The TPU
+// path's barrel shifts (a log2(L/16)-step cascade of whole-row selects
+// per stream) exist because gathers are slow there; here every thread
+// computes its own word:
 //   * row r of 4B selects the pair p = r mod B and the stream r / B (lt,
 //     rt, lq, rq); every thread of the row derives the stream's read,
 //     start, step (+1 or -1), complement flag and length n from the
@@ -614,12 +697,6 @@ namespace {
 
 constexpr int kPrepThreads = 256;
 constexpr long long kMaxGridY = 65535;
-
-// The sixteen 2-bit groups of w in reverse order (_revbase_words).
-__device__ __forceinline__ uint32_t reverse_bases(uint32_t w) {
-  w = __brev(w);
-  return ((w >> 1) & 0x55555555u) | ((w & 0x55555555u) << 1);
-}
 
 __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const uint32_t* __restrict__ words, long long n_words,

@@ -12,12 +12,21 @@ Launches whose lengths and xdrop are below ``INT32_KEY_EXTENT`` run the
 kernel's int32-key instantiation; longer ones (to ``MAX_EXTENT``) its
 long-key instantiation, with the same results.
 
+The kernel reads each extension's bases through a descriptor on a flat
+word stream (``Streams``): the alignment driver gives it the reads' own
+words (``run_streams``), so no extension is materialised; the entries on
+word rows give it the rows as streams (``row_streams``). Both go through
+one launcher, ``launch_streams``.
+
 A wrapper launches the kernel for CUDA tensors and raises if it cannot;
 it takes the plain PyTorch version (``xdrop_plain``, a loop over
-antidiagonals on (B, W) tensors) only for tensors on the CPU.
+antidiagonals on (B, W) tensors; ``stream_rows`` gathers streams into
+rows for it) only for tensors on the CPU.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,6 +41,8 @@ MAX_BAND = 4096            # lanes per block the kernel's reduction key holds
 # MAX_EXTENT = 2^29 keep value + d <= 3 * 2^29.
 INT32_KEY_EXTENT = 1 << 17
 MAX_EXTENT = 1 << 29
+# a step cap no extension reaches (t_len + q_len < 2 * MAX_EXTENT)
+NO_CAP = 2 * MAX_EXTENT
 _CHUNK = 128               # the compiled Pallas kernel's step granularity
 
 
@@ -134,51 +145,94 @@ def resident_extensions(W: int, adaptive: bool) -> int:
     return n
 
 
-def launch_xdrop(Tw, t_len, Qw, q_len, xdrop: int, W: int, cap: int,
-                 adaptive: bool, with_steps: bool = False,
-                 long_key: bool = False) -> torch.Tensor:
-    """Launch csrc/xdrop.cu on CUDA tensors. Returns a (3, B) int32 tensor
+@dataclasses.dataclass
+class Streams:
+    """B extension streams on a flat word stream (16 bases an int32 word,
+    least significant first): stream e holds len[e] bases, and its base t
+    is flat base a + t, or a - t where it runs backwards, complemented
+    where flagged; at[e] = 4 a + 2 (backwards) + (complemented) is the
+    kernel's descriptor."""
+
+    words: torch.Tensor  # (n,) int32
+    at: torch.Tensor     # (B,) int64
+    len: torch.Tensor    # (B,) int32
+
+    def take(self, idx) -> "Streams":
+        return Streams(self.words, self.at[idx], self.len[idx])
+
+
+def row_streams(Tw, t_len) -> Streams:
+    """The rows of a (B, Wp) int32 word matrix (rows contiguous) as
+    streams: row e is the stream at flat base 16 e stride, forwards, not
+    complemented."""
+    B, Wp = Tw.shape
+    extent = (B - 1) * Tw.stride(0) + Wp if B else 0
+    at = torch.arange(B, dtype=torch.int64, device=Tw.device)
+    return Streams(Tw.as_strided((extent,), (1,)), at * (64 * Tw.stride(0)),
+                   t_len)
+
+
+def stream_rows(s: Streams, L: int) -> torch.Tensor:
+    """(B, ceil(L/16)) int32 words of the streams s, 'A' beyond each
+    length: one indexed gather per base, then packed (the plain version of
+    the kernel's loads, and of the rows K3 writes)."""
+    t = torch.arange(L, device=s.at.device, dtype=torch.int64)[None, :]
+    step = torch.where((s.at & 2) != 0, -1, 1)
+    pos = (s.at >> 2)[:, None] + step[:, None] * t
+    ok = t < s.len[:, None]
+    pos = torch.where(ok, pos, 0).clamp(0, 16 * s.words.numel() - 1)
+    base = (s.words[pos >> 4] >> (2 * (pos & 15)).to(torch.int32)) & 3
+    base = base ^ (3 * (s.at & 1).to(torch.int32))[:, None]
+    return pack_words(torch.where(ok, base, 0))
+
+
+def launch_streams(ts: Streams, qs: Streams, xdrop: int, W: int, cap: int,
+                   adaptive: bool, with_steps: bool = False,
+                   long_key: bool = False) -> torch.Tensor:
+    """Launch csrc/xdrop.cu on streams of CUDA tensors, extension e
+    running ts's stream e against qs's. Returns a (3, B) int32 tensor
     (score, t_end, q_end), with a fourth row of antidiagonal counts when
-    with_steps. long_key selects the long-key instantiation (run_xdrop
-    sets it from the batch, needs_long_key). Raises if the library cannot
-    be built or the launch fails; never falls back to the plain version.
-    The kernel takes extensions in longest_first order from a counter
-    zeroed here, and writes each result at its extension's index."""
+    with_steps. long_key selects the long-key instantiation. Raises if
+    the library cannot be built or the launch fails; never falls back to
+    the plain version. The kernel takes extensions in longest_first order
+    from a counter zeroed here, and writes each result at its extension's
+    index."""
     import ctypes
 
     from bella_tpu_torch.align import _build
 
-    if not Tw.is_cuda:
-        raise ValueError("launch_xdrop takes CUDA tensors")
-    B = Tw.shape[0]
+    if not ts.at.is_cuda:
+        raise ValueError("launch_streams takes CUDA tensors")
+    B = ts.at.shape[0]
+    dev = ts.at.device
     out = torch.empty((4 if with_steps else 3, B), dtype=torch.int32,
-                      device=Tw.device)
+                      device=dev)
     if B == 0:
         return out
     lib = _build.xdrop_lib()
-    order = longest_first(t_len, q_len)
-    counter = torch.zeros(1, dtype=torch.int32, device=Tw.device)
+    order = longest_first(ts.len, qs.len)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
     # the library links its own CUDA runtime, which launches on the
     # calling thread's current device: make it the tensors' card
-    with torch.cuda.device(Tw.device):
-        stream = torch.cuda.current_stream(Tw.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bella_xdrop_launch(
-            ctypes.c_void_p(Tw.data_ptr()), ctypes.c_void_p(Qw.data_ptr()),
-            Tw.stride(0), Qw.stride(0),
-            ctypes.c_void_p(t_len.data_ptr()), ctypes.c_void_p(q_len.data_ptr()),
-            ctypes.c_void_p(order.data_ptr()),
-            ctypes.c_void_p(counter.data_ptr()),
+            ptr(ts.words), ts.words.numel(), ptr(ts.at),
+            ptr(qs.words), qs.words.numel(), ptr(qs.at),
+            ptr(ts.len), ptr(qs.len), ptr(order), ptr(counter),
             B, W, int(xdrop), int(cap), 1 if adaptive else 0,
-            1 if long_key else 0,
-            ctypes.c_void_p(out[0].data_ptr()), ctypes.c_void_p(out[1].data_ptr()),
-            ctypes.c_void_p(out[2].data_ptr()),
-            ctypes.c_void_p(out[3].data_ptr()) if with_steps else None,
-            ctypes.c_void_p(stream),
+            1 if long_key else 0, ptr(out[0]), ptr(out[1]), ptr(out[2]),
+            ptr(out[3]) if with_steps else None, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"x-drop kernel launch failed: CUDA error {rc}")
     name = "launch.xdrop_adaptive" if adaptive else "launch.xdrop_static"
     count(name)
+    count("xdrop.extensions", B)
     if long_key:
         count(name + "_long_key")
     return out
@@ -196,7 +250,7 @@ def xdrop_plain(Tw, t_len, Qw, q_len, xdrop: int, W: int, cap: int,
                 adaptive: bool, with_steps: bool = False) -> torch.Tensor:
     """Plain PyTorch version of csrc/xdrop.cu (both modes), on any device:
     one iteration per antidiagonal over (B, W) tensors. Same (3|4, B)
-    int32 result as launch_xdrop."""
+    int32 result as launch_streams."""
     dev = Tw.device
     B = Tw.shape[0]
     T, Q = unpack_words(Tw), unpack_words(Qw)
@@ -254,19 +308,87 @@ def xdrop_plain(Tw, t_len, Qw, q_len, xdrop: int, W: int, cap: int,
 
 def run_xdrop(Tw, t_len, Qw, q_len, xdrop, W: int, cap: int,
               adaptive: bool, with_steps: bool = False) -> torch.Tensor:
-    """Dispatch on the tensors' device: the kernel for CUDA tensors (the
-    int32-key or the long-key instantiation, from the batch's lengths and
-    xdrop), the plain version for CPU tensors, an error for anything
-    else."""
+    """The x-drop extension of Tw's row e against Qw's, for every e:
+    run_streams on the rows' row_streams, once _check has read the longest
+    length (from the card for CUDA tensors)."""
     longest = _check(Tw, t_len, Qw, q_len, int(xdrop), W)
-    if Tw.is_cuda:
-        return launch_xdrop(Tw, t_len, Qw, q_len, int(xdrop), W, cap,
-                            adaptive, with_steps,
-                            long_key=needs_long_key(longest, xdrop))
-    if Tw.device.type == "cpu":
-        return xdrop_plain(Tw, t_len, Qw, q_len, int(xdrop), W, cap, adaptive,
-                           with_steps)
-    raise ValueError(f"no x-drop kernel for device {Tw.device}")
+    return run_streams(row_streams(Tw, t_len), row_streams(Qw, q_len),
+                       xdrop, W, cap, adaptive, longest, with_steps)
+
+
+def _check_streams(ts: Streams, qs: Streams, xdrop: int, W: int,
+                   longest: int) -> None:
+    """Raise on streams the kernel does not take; reads nothing back from
+    the card."""
+    B = ts.at.shape[0]
+    for s in (ts, qs):
+        if (s.words.dim() != 1 or s.words.dtype != torch.int32
+                or not s.words.is_contiguous()):
+            raise ValueError("stream words must be a contiguous 1-D int32 "
+                             "tensor")
+        if (s.at.shape != (B,) or s.at.dtype != torch.int64
+                or not s.at.is_contiguous()):
+            raise ValueError(f"descriptors must be a contiguous ({B},) "
+                             "int64 tensor")
+        if (s.len.shape != (B,) or s.len.dtype != torch.int32
+                or not s.len.is_contiguous()):
+            raise ValueError(f"lengths must be a contiguous ({B},) int32 "
+                             "tensor")
+    devs = {t.device for s in (ts, qs) for t in (s.words, s.at, s.len)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    if not 2 <= W <= MAX_BAND:
+        raise ValueError(f"band {W} outside [2, {MAX_BAND}]")
+    if not 0 <= xdrop < MAX_EXTENT:
+        raise ValueError(f"xdrop {xdrop} outside [0, {MAX_EXTENT})")
+    if not 0 <= longest < MAX_EXTENT:
+        raise ValueError(f"lengths must be below {MAX_EXTENT}")
+
+
+def _where(mask: torch.Tensor) -> torch.Tensor:
+    """The indexes where mask holds (a host wait on the card, counted as
+    sync.align)."""
+    if mask.is_cuda:
+        count("sync.align")
+    return torch.nonzero(mask).squeeze(1)
+
+
+def run_streams(ts: Streams, qs: Streams, xdrop: int, W: int, cap: int,
+                adaptive: bool, longest: int,
+                with_steps: bool = False) -> torch.Tensor:
+    """The x-drop extension of ts's stream e against qs's, for every e:
+    the kernel for CUDA tensors, the plain version (the streams gathered
+    into rows, then xdrop_plain) for CPU tensors, an error for anything
+    else. longest bounds every stream's length from what the caller knows
+    (no length is read back from the card). On the card it picks the key:
+    the int32 key when longest and xdrop lie below INT32_KEY_EXTENT;
+    otherwise the extensions at or above it run in a long-key launch of
+    their own and the rest in an int32-key launch (one host wait for
+    which are which), or all in the long-key one when xdrop needs it.
+    Same (3|4, B) int32 result as launch_streams."""
+    xdrop = int(xdrop)
+    _check_streams(ts, qs, xdrop, W, int(longest))
+    if ts.at.is_cuda:
+        if not needs_long_key(longest, xdrop):
+            return launch_streams(ts, qs, xdrop, W, cap, adaptive, with_steps)
+        if needs_long_key(0, xdrop):
+            return launch_streams(ts, qs, xdrop, W, cap, adaptive, with_steps,
+                                  long_key=True)
+        out = torch.empty((4 if with_steps else 3, ts.at.shape[0]),
+                          dtype=torch.int32, device=ts.at.device)
+        long = torch.maximum(ts.len, qs.len) >= INT32_KEY_EXTENT
+        for long_key, idx in ((True, _where(long)), (False, _where(~long))):
+            out[:, idx] = launch_streams(ts.take(idx), qs.take(idx), xdrop,
+                                         W, cap, adaptive, with_steps,
+                                         long_key)
+        return out
+    if ts.at.device.type == "cpu":
+        count("xdrop.extensions", ts.at.shape[0])
+        n = int(torch.maximum(ts.len, qs.len).max()) if len(ts.len) else 0
+        L = max(16, -(-n // 16) * 16)
+        return xdrop_plain(stream_rows(ts, L), ts.len, stream_rows(qs, L),
+                           qs.len, xdrop, W, cap, adaptive, with_steps)
+    raise ValueError(f"no x-drop kernel for device {ts.at.device}")
 
 
 def _as_dict(out: torch.Tensor) -> dict:

@@ -16,15 +16,20 @@ it is ``csrc/xdrop.cu`` in its adaptive mode (kernel K2); as a loop of
 torch ops it would cost several launches per antidiagonal. Its plain
 version, ``extend_batch_plain``, is what CPU tensors take.
 
-The extension streams of a batch are built on packed words straight from
-the ragged word stream of the reads by ``prepare_batch``: kernel K3
-(``csrc/xdrop.cu``, one thread per output word) on CUDA tensors, its plain
-version (``prepare_batch_plain``: indexed gathers per base, then packing)
-on CPU tensors. The barrel shifts of the TPU path exist because TPU
-gathers are slow and are not ported, nor are the pow4 length tiers and
-batch buckets (compile-variant caps) or the prewarm threads. With the
-default step cap the tier width never binds (2 * L >= t_len + q_len), so
-dropping the tiers changes no result.
+Each extension's two streams are descriptors on the ragged word stream
+of the reads (``extension_streams``: the read, start, direction and
+complement of each, and its length, from the pair block and the reads'
+lengths), which K1 and K2 read straight from the reads' words: on the card
+a whole level of pairs (the first pass, each cascade level, the tail, the
+adaptive pass) is one pair block, one launch and one download. The plain
+versions take ``align_batch`` pairs at a time, the streams gathered into
+rows. ``prepare_batch`` materialises a batch's streams as rows (kernel K3,
+``csrc/xdrop.cu``, on CUDA tensors; ``prepare_batch_plain`` on CPU
+tensors), for the tests and ``chip_smoke.py``. The barrel shifts of the TPU path
+exist because TPU gathers are slow and are not ported, nor are the pow4
+length tiers and batch buckets (compile-variant caps) or the prewarm
+threads. With the default step cap no extension's cap binds (it is at
+least t_len + q_len), so dropping the tiers changes no result.
 """
 
 from __future__ import annotations
@@ -37,8 +42,8 @@ import numpy as np
 import torch
 
 from bella_tpu_torch.align.pallas_xdrop import (
-    extend_batch_packed, pack_words as _pack_rows, run_xdrop, xdrop_plain,
-    _check,
+    NO_CAP, Streams, pack_words as _pack_rows, round_band, run_streams,
+    run_xdrop, static_step_cap, stream_rows, xdrop_plain, _check,
 )
 from bella_tpu_torch.utils.log import count, log, span
 
@@ -196,23 +201,9 @@ def _upload_reads(reads, device) -> _Reads:
         )
 
 
-def _gather_words(rd: _Reads, rid, start, step, comp, n, L: int):
-    """(B, L/16) int32 words of base start + step * t of read rid, for
-    t < n (complemented where comp), 'A' beyond n: one indexed gather per
-    base, then packed."""
-    t = torch.arange(L, device=rid.device, dtype=torch.int64)[None, :]
-    pos = start[:, None] + step[:, None] * t
-    ok = t < n[:, None]
-    pos = torch.where(ok, pos, 0).clamp_min(0)
-    g = (rd.off_w[rid][:, None] + (pos >> 4)).clamp(0, rd.words.numel() - 1)
-    base = (rd.words[g] >> (2 * (pos & 15)).to(torch.int32)) & 3
-    base = base ^ (3 * comp.to(torch.int32))[:, None]
-    return _pack_rows(torch.where(ok, base, 0))
-
-
 def _pair_block(pairs, rows: np.ndarray, device) -> torch.Tensor:
     """The (5, B) int32 block of pairs `rows` on `device`, rows read_h,
-    read_v, pos_h, pos_v, seed_rc: one upload a batch (bella_tpu's
+    read_v, pos_h, pos_v, seed_rc: one upload a launch (bella_tpu's
     _pair_block without its row of batch-padding flags)."""
     blk = np.stack([pairs.read_h[rows], pairs.read_v[rows],
                     pairs.pos_h[rows], pairs.pos_v[rows],
@@ -239,35 +230,43 @@ def _check_prep(rd: _Reads, blk, L: int) -> None:
                              f"{blk.device}")
 
 
-def prepare_batch_plain(rd: _Reads, blk, k: int, L: int) -> dict:
-    """The plain version of prepare_batch, on any device: the strand
-    correction of each seed, then the streams by _gather_words, row for
-    row as K3 writes them. Left = reversed prefixes up to the seed end,
-    right = suffixes after it; H is reverse-complemented where the seed
-    is (its seed coordinate flipped)."""
-    _check_prep(rd, blk, L)
+def extension_streams(rd: _Reads, blk, k: int) -> dict:
+    """The extensions of the (5, B) pair block on the reads' words, by
+    torch ops on its device (what K3 derives for each of its rows): T and
+    Q, Streams of 2B extensions, the left ones (lt against lq) then the
+    right ones (rt against rq); seed_end_h, seed_end_v (B,) int32. The
+    strand correction of each seed, then left = the reversed prefix up to
+    the seed's end, right = the suffix after it, of H (reverse-complemented
+    where the seed is: H[x] = 3 - h[len_h - 1 - x]) and of V."""
     bh, bv, ph, pv, rc = blk.to(torch.int64)
     rc = rc != 0
     len_h, len_v = rd.lens[bh], rd.lens[bv]
     seh = torch.where(rc, len_h - ph - k, ph) + k  # seed end on H
     sev = pv + k                                   # seed end on V
-    one = torch.ones_like(bh)
-    step = torch.where(rc, one, -one)
-    # rows lt then rt; H[x] = h[x], or 3 - h[len_h - 1 - x] on the
-    # reverse strand
-    t_len = torch.cat([seh, len_h - seh])
-    T = _gather_words(
-        rd, bh.repeat(2), torch.cat([torch.where(rc, len_h - seh, seh - 1),
-                                     torch.where(rc, len_h - 1 - seh, seh)]),
-        torch.cat([step, -step]), rc.repeat(2), t_len, L)
-    # rows lq then rq
-    q_len = torch.cat([sev, len_v - sev])
-    Q = _gather_words(rd, bv.repeat(2), torch.cat([sev - 1, sev]),
-                      torch.cat([-one, one]), torch.zeros_like(rc).repeat(2),
-                      q_len, L)
+    at_h, at_v = 64 * rd.off_w[bh], 64 * rd.off_w[bv]
+    # descriptors 4 start + 2 (backwards) + (complemented)
+    t_at = torch.cat([
+        at_h + torch.where(rc, 4 * (len_h - seh) + 1, 4 * (seh - 1) + 2),
+        at_h + torch.where(rc, 4 * (len_h - 1 - seh) + 3, 4 * seh)])
+    q_at = torch.cat([at_v + 4 * (sev - 1) + 2, at_v + 4 * sev])
     i32 = torch.int32
-    return dict(T=T, Q=Q, t_len=t_len.to(i32), q_len=q_len.to(i32),
-                seed_end_h=seh.to(i32), seed_end_v=sev.to(i32), L=L)
+    t_len = torch.cat([seh, len_h - seh]).to(i32)
+    q_len = torch.cat([sev, len_v - sev]).to(i32)
+    return dict(T=Streams(rd.words, t_at, t_len),
+                Q=Streams(rd.words, q_at, q_len),
+                seed_end_h=seh.to(i32), seed_end_v=sev.to(i32))
+
+
+def prepare_batch_plain(rd: _Reads, blk, k: int, L: int) -> dict:
+    """The plain version of prepare_batch, on any device: the batch's
+    extension_streams gathered into rows (stream_rows), row for row as K3
+    writes them."""
+    _check_prep(rd, blk, L)
+    ext = extension_streams(rd, blk, k)
+    return dict(T=stream_rows(ext["T"], L), Q=stream_rows(ext["Q"], L),
+                t_len=ext["T"].len, q_len=ext["Q"].len,
+                seed_end_h=ext["seed_end_h"], seed_end_v=ext["seed_end_v"],
+                L=L)
 
 
 def launch_prep(rd: _Reads, blk, k: int, L: int) -> dict:
@@ -346,50 +345,61 @@ def _combine_extensions(ext, left, right) -> torch.Tensor:
 def extension_batches(rd: _Reads, pairs, sel: np.ndarray,
                       pair_len: np.ndarray, k: int, batch_size: int):
     """Yield (idx, ext) per batch of pairs sel[idx], batches taken in
-    order of pair length so each batch's word width fits its reads. ext
-    is prepare_batch's: T, Q, t_len, q_len, the left and right extensions
-    stacked, so both directions of a batch go through ONE kernel launch
-    of 2B extensions; the seed ends; and L, the batch's width in bases,
-    from the host's pair_len (max of the two read lengths of each pair):
-    no wait for the card. Each batch lies in a span, align.batch, that
-    stays open while the caller works on it, until it asks for the next
-    batch."""
+    order of pair length so each batch's word width fits its reads: the
+    streams materialised a batch at a time, against which chip_smoke.py
+    and the tests hold and time the one launch a level of _extend_pairs.
+    ext is prepare_batch's: T, Q, t_len, q_len, the left and right
+    extensions stacked, so both directions of a batch go through one
+    launch of 2B extensions; the seed ends; and L, the batch's width in
+    bases, from the host's pair_len (max of the two read lengths of each
+    pair)."""
     order = np.argsort(pair_len[sel], kind="stable")
     dev = rd.lens.device
     for s in range(0, len(sel), batch_size):
-        with span("align.batch"):
-            idx = order[s:s + batch_size]
-            rows = sel[idx]
-            L = max(16, -(-int(pair_len[rows].max()) // 16) * 16)
-            yield idx, prepare_batch(rd, _pair_block(pairs, rows, dev), k, L)
+        idx = order[s:s + batch_size]
+        rows = sel[idx]
+        L = max(16, -(-int(pair_len[rows].max()) // 16) * 16)
+        yield idx, prepare_batch(rd, _pair_block(pairs, rows, dev), k, L)
 
 
 def _extend_pairs(rd: _Reads, pairs, sel: np.ndarray, pair_len: np.ndarray,
                   xdrop: int, k: int, band: int, max_steps: int,
                   adaptive: bool, batch_size: int) -> np.ndarray:
     """(6, len(sel)) int32 extension rows for pairs `sel`: K1 at the
-    static band, or K2 at the adaptive band (one extension's result does
-    not depend on its batch)."""
+    static band, or K2 at the adaptive band, on both extensions of every
+    pair. On the card the pairs go up as one pair block and run as one
+    launch (two where some extension needs the long key), in one
+    longest-first order, and come back in one download; the plain
+    versions take batch_size pairs at a time in order of pair length, so
+    that their (B, W) tensors stay bounded (an extension's result does not
+    depend on its batch). With max_steps <= 0 no extension's step cap
+    binds."""
     out = np.zeros((6, len(sel)), np.int32)
     if not len(sel):
         return out
-    idxs, parts = [], []
-    for idx, ext in extension_batches(rd, pairs, sel, pair_len, k,
-                                      batch_size):
-        if adaptive:
-            cap = max_steps if max_steps > 0 else 2 * ext["L"]
-            res = run_xdrop(ext["T"], ext["t_len"], ext["Q"], ext["q_len"],
-                            xdrop, int(band), cap, True)
-        else:
-            o = extend_batch_packed(ext["T"], ext["t_len"], ext["Q"],
-                                    ext["q_len"], xdrop, band=band,
-                                    max_steps=max_steps)
-            res = torch.stack([o["score"], o["t_end"], o["q_end"]])
-        B = len(idx)
-        parts.append(_combine_extensions(ext, res[:, :B], res[:, B:]))
-        idxs.append(idx)
+    if adaptive:
+        W, cap = int(band), max_steps if max_steps > 0 else NO_CAP
+    else:
+        W = round_band(band)
+        cap = static_step_cap(max_steps) if max_steps > 0 else NO_CAP
+    dev = rd.lens.device
+    if rd.lens.is_cuda:
+        batches = [np.arange(len(sel))]
+    else:
+        order = np.argsort(pair_len[sel], kind="stable")
+        batches = [order[s:s + batch_size]
+                   for s in range(0, len(sel), batch_size)]
+    parts = []
+    for idx in batches:
+        with span("align.batch"):
+            rows = sel[idx]
+            ext = extension_streams(rd, _pair_block(pairs, rows, dev), k)
+            res = run_streams(ext["T"], ext["Q"], xdrop, W, cap, adaptive,
+                              longest=int(pair_len[rows].max()))
+            B = len(idx)
+            parts.append(_combine_extensions(ext, res[:, :B], res[:, B:]))
     with span("align.collect"):
-        out[:, np.concatenate(idxs)] = _download(torch.cat(parts, dim=1))
+        out[:, np.concatenate(batches)] = _download(torch.cat(parts, dim=1))
     return out
 
 

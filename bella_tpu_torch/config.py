@@ -63,8 +63,12 @@ class BellaConfig:
     rescue_predict: bool = True    # drift predictor routing of the cascade
     rescue_ceiling: int = 2048     # widest static rescue band (>= 2x
                                    # pallas_band is always tried)
-    align_batch: int = 4096        # alignment pairs per kernel batch
-    max_steps: Optional[int] = None  # wavefront step cap; None = 2 * length
+    align_batch: int = 4096        # alignment pairs per batch of the plain
+                                   # (CPU) kernels, and --selfcheck's K2
+                                   # sample; on the card a level of pairs
+                                   # is one launch, whatever its size
+    max_steps: Optional[int] = None  # wavefront step cap; None: no cap
+                                     # binds (t_len + q_len at most)
     selfcheck: bool = False        # --selfcheck  host recount, seed and
                                    # K1-against-K2 checks (utils/selfcheck.py)
     devices: int = 0               # --devices: shards (0/1 = one device)

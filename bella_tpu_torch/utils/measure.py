@@ -116,7 +116,7 @@ def kernel_spans():
     from bella_tpu_torch.align import xdrop as X
     from bella_tpu_torch.parallel.sharded import ShardGroup
 
-    orig, orig_prep, orig_map = P.launch_xdrop, X.launch_prep, ShardGroup.map
+    orig, orig_prep, orig_map = P.launch_streams, X.launch_prep, ShardGroup.map
     spans: dict = {}
     lock = threading.Lock()  # shards on distinct cards launch at once
     here = threading.local()  # the shard the calling thread runs
@@ -133,12 +133,12 @@ def kernel_spans():
             spans.setdefault(key, []).append((a, b))
         return out
 
-    def timed(Tw, t_len, Qw, q_len, xdrop, W, cap, adaptive,
-              with_steps=False, long_key=False):
-        return span(Tw.device,
+    def timed(ts, qs, xdrop, W, cap, adaptive, with_steps=False,
+              long_key=False):
+        return span(ts.at.device,
                     "xdrop_adaptive" if adaptive else "xdrop_static", W,
-                    lambda: orig(Tw, t_len, Qw, q_len, xdrop, W, cap,
-                                 adaptive, with_steps, long_key))
+                    lambda: orig(ts, qs, xdrop, W, cap, adaptive, with_steps,
+                                 long_key))
 
     def timed_prep(rd, blk, k, L):
         return span(blk.device, "ext_prep", 0,
@@ -153,7 +153,7 @@ def kernel_spans():
                 here.shard = None
         return orig_map(group, run, group.shards, *per_shard)
 
-    with patched([(P, "launch_xdrop", timed), (X, "launch_prep", timed_prep),
+    with patched([(P, "launch_streams", timed), (X, "launch_prep", timed_prep),
                   (ShardGroup, "map", tagged_map)]):
         yield spans
 

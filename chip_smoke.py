@@ -37,15 +37,16 @@ Phases (any failure exits nonzero and prints no result):
      and on the adaptive-band backend (rows and scores)
   5. main path on the bench corpus (bench.py's: genome 300,000 seed 0;
      1,250 reads, mean 6,000 bp, 15 % error, seed 1) at the default
-     config, with its recorded anchors, and K3 against its plain version
-     on every first-pass batch of the run; then the same corpus with the
+     config, with its recorded anchors, and its first pass as one
+     descriptor-fed launch against K3 and K1 on its former batches of
+     align_batch pairs (bit for bit, timed, tails modelled:
+     level_against_batches); then the same corpus with the
      static cascade capped at 256 lanes, which sends the residue
      through K2 (the adaptive exactness tail)
   6. main path on dataset D of scripts/crossval_large.sh (genome 4.6 Mbp
      seed 401; 23,000 reads, mean 6 kbp, 15 % error, seed 402), with its
-     anchors and K1's in-path time by band; K3 against its plain version
-     on the run's first, middle and last first-pass batch and its first
-     cascade batch
+     anchors and K1's in-path time by band; its first pass as one launch
+     against its former batches, as in 5
   7. adaptive: dataset D with aligner_backend="jax" (K2 at band_width on
      every pair, no cascade): D's detection anchors, its rows anchored,
      scored and set against the static path's; K2's launches, in-path
@@ -112,12 +113,12 @@ Phases (any failure exits nonzero and prints no result):
  18. kernel table: time on the card against the plain version and the
      least time the card could take, at the main path's shapes (and the
      long-key instantiation at the long phase's), and the bench first
-     pass's launches with their tail ratios (K2's row: dataset D on the
-     adaptive backend; K3's: every prep of D's static path); launches on
+     pass as one launch (K2's row: dataset D on the adaptive backend, one
+     launch; K3's: D's first pass in its former batches); launches on
      every main-path run, by shard on the multi-device runs
 
-Every main-path run launches K3 once for each x-drop launch (every batch
-of every alignment path goes through it).
+Every main-path run launches no K3 (K1 and K2 read the reads' words
+through descriptors) and one x-drop launch a cascade level.
 
 The last line is {"ok": true, "device": {...}}; the kernel table and the
 card's name and power limit are on the lines before it.
@@ -170,6 +171,9 @@ ULTRALONG_ANCHORS = dict(nnz=3_069_277, pairs=88_663, rows=26_017,
 ADAPTIVE_ANCHORS = dict(nnz=13_996_132, pairs=1_434_878, rows=619_271,
                         levels=[], tail_pairs=0)
 ADAPTIVE_SAMPLE = 256  # D's pairs held bit for bit against K2's plain version
+# the bench first pass's longest pairs, and others drawn at random, held
+# bit for bit against K1's plain version as the main path launches K1
+K1_LONGEST, K1_SAMPLE = 8, 120
 # dataset D's pairs whose host-staged-triples seed (the unpacked branch's
 # rule, bella_tpu's too) differs from the single pass's by a flip tie
 DEMO_FLIP_TIES = 1
@@ -459,34 +463,78 @@ def prep_err(rd, blk, k: int, L: int) -> int:
     return err
 
 
-@contextlib.contextmanager
-def recording_prep():
-    """The (reads, pair block, k, L) of every prepare_batch call made
-    inside, in call order (the calls themselves run unchanged)."""
+def level_against_batches(reads, pairs, config, label: str,
+                          state: dict) -> list:
+    """Every pair of a corpus as one level of the main path (both
+    extensions, one descriptor-fed launch over the reads' words, longest
+    first) against the form it replaced: K3 materialising the streams
+    of align_batch pairs at a time, each batch's K1 (or K2 on the adaptive
+    path) launch after it. Bit for bit, steps included; each form timed
+    (CUDA events around its x-drop launches, K3 not counted) with its
+    tails modelled (list_span over the kernel's own schedule, longest
+    first on its resident warp groups). Returns the K3 calls (reads, pair
+    block, k, L) of the batched form, for K3's row of the kernel table."""
+    import torch
+
+    from bella_tpu_torch.align import pallas_xdrop as P
     from bella_tpu_torch.align import xdrop as X
-    from bella_tpu_torch.utils.measure import patched
+    from bella_tpu_torch.utils.measure import kernel_spans, span_ms
 
-    calls, orig = [], X.prepare_batch
+    adaptive = config.adaptive_aligner
+    k, xdrop = int(config.kmer_size), int(config.xdrop)
+    W = (int(config.band_width) if adaptive
+         else P.round_band(config.pallas_band))
+    rd = X._upload_reads(reads, "cuda")
+    n = pairs.num_pairs
+    sel = np.arange(n)
+    lens = reads.lengths
+    pair_len = np.maximum(lens[pairs.read_h], lens[pairs.read_v])
+    slots = P.resident_extensions(W, adaptive)
 
-    def record(rd, blk, k, L):
-        calls.append((rd, blk, k, L))
-        return orig(rd, blk, k, L)
-
-    with patched([(X, "prepare_batch", record)]):
-        yield calls
-
-
-def check_in_path_prep(calls, picks, label: str, state: dict) -> None:
-    """K3 against its plain version on the recorded batches `picks` of a
-    main-path run."""
-    errs = [prep_err(*calls[i]) for i in picks]
-    print(f"K3 {label}: batches {list(picks)} of {len(calls)}: max |K3 - "
-          f"plain| = {max(errs)}", flush=True)
-    state.setdefault("k3_in_path", {})[label] = dict(
-        batches=[int(i) for i in picks], of=len(calls), err=max(errs))
-    if any(errs):
-        raise AssertionError(f"{label}: K3 disagrees with its plain version "
-                             "on the main path's batches")
+    ext = X.extension_streams(rd, X._pair_block(pairs, sel, "cuda"), k)
+    with kernel_spans() as whole:
+        got = P.run_streams(ext["T"], ext["Q"], xdrop, W, P.NO_CAP, adaptive,
+                            longest=int(pair_len.max()), with_steps=True)
+    want = torch.empty_like(got)
+    calls, batch_tails = [], []
+    with kernel_spans() as batched:
+        for idx, e in X.extension_batches(rd, pairs, sel, pair_len, k,
+                                          config.align_batch):
+            L = e["L"]
+            cap = 2 * L if adaptive else P.static_step_cap(2 * L)
+            o = P.run_xdrop(e["T"], e["t_len"], e["Q"], e["q_len"], xdrop, W,
+                            cap, adaptive, with_steps=True)
+            B = len(idx)
+            at = torch.from_numpy(idx).cuda()
+            want[:, at], want[:, n + at] = o[:, :B], o[:, B:]
+            order = P.longest_first(e["t_len"], e["q_len"]).cpu().numpy()
+            steps = o[3].cpu().numpy()
+            batch_tails.append(tail_ratio(steps[order], slots))
+            calls.append((rd, X._pair_block(pairs, sel[idx], "cuda"), k, L))
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    order = P.longest_first(ext["T"].len, ext["Q"].len).cpu().numpy()
+    steps = got[3].cpu().numpy()
+    info = dict(
+        extensions=2 * n, W=W, slots=slots, err=err,
+        whole_ms=sum(span_ms(v) for v in whole.values()),
+        whole_launches=sum(len(v) for v in whole.values()),
+        whole_tail=tail_ratio(steps[order], slots),
+        batched_ms=sum(span_ms(v) for key, v in batched.items()
+                       if key[0] != "ext_prep"),
+        batched_launches=sum(len(v) for key, v in batched.items()
+                             if key[0] != "ext_prep"),
+        batched_k3_ms=sum(span_ms(v) for key, v in batched.items()
+                          if key[0] == "ext_prep"),
+        batched_tails=[min(batch_tails), float(np.median(batch_tails)),
+                       max(batch_tails)],
+        mean_steps=float(steps.mean()), max_steps=int(steps.max()))
+    print(f"level {label}: " + json.dumps(info), flush=True)
+    state.setdefault("levels", {})[label] = info
+    if err:
+        raise AssertionError(f"{label}: the descriptor-fed kernel disagrees "
+                             "with K3 and the batched kernel")
+    return calls
 
 
 def phase_kernels(state: dict) -> None:
@@ -705,6 +753,8 @@ def run_main(reads, config, label: str, state: dict, truth=None, mesh=None):
         checks={k: [list(x) if isinstance(x, tuple) else x for x in v]
                 for k, v in checks.items()},
         bounds=[config.lower_freq, config.upper_freq],
+        xdrop_extensions=ulog.COUNTS.get("xdrop.extensions", 0),
+        syncs=ulog.COUNTS.get("sync.align", 0),
     )
     if mesh is not None:
         info.update(
@@ -722,10 +772,10 @@ def run_main(reads, config, label: str, state: dict, truth=None, mesh=None):
     if not all(np.isfinite(res.alignment.score)) or len(res.rows) != res.num_output:
         raise AssertionError(f"{label}: malformed output")
     extensions = counts["xdrop_static"] + counts["xdrop_adaptive"]
-    if counts["ext_prep"] != extensions or (
-            res.pairs.num_pairs and not config.skip_alignment
-            and not extensions):
-        raise AssertionError(f"{label}: a batch went around K3: {counts}")
+    if counts["ext_prep"] or (res.pairs.num_pairs and not
+                              config.skip_alignment and not extensions):
+        raise AssertionError(f"{label}: the main path launched K3, or no "
+                             f"x-drop kernel: {counts}")
     return res, counts
 
 
@@ -735,8 +785,7 @@ def phase_bench(state: dict) -> None:
 
     reads = bench_corpus()
     state["bench_reads"] = reads
-    with recording_prep() as calls:
-        res, counts = run_main(reads, BellaConfig(), "bench", state)
+    res, counts = run_main(reads, BellaConfig(), "bench", state)
     state["bench_result"] = res
     info = state["runs"]["bench"]
     got = dict(nnz=info["nnz"], pairs=info["pairs"],
@@ -748,11 +797,8 @@ def phase_bench(state: dict) -> None:
     if counts["xdrop_static"] <= 0:
         raise AssertionError("the main path launched no K1")
     state["k1_launches"] = counts["xdrop_static"]
-    state["k3_launches"] = counts["ext_prep"]
     print(f"bench anchors hold: {got}")
-    first = -(-res.pairs.num_pairs // BellaConfig().align_batch)
-    check_in_path_prep(calls, range(first), "bench first pass", state)
-    del calls
+    level_against_batches(reads, res.pairs, BellaConfig(), "bench", state)
 
     # the exactness tail: with the static cascade capped at 256 lanes the
     # pairs still saturated at 256 re-extend through K2
@@ -826,8 +872,7 @@ def phase_demo(state: dict) -> None:
     print(f"dataset D: {reads.num_reads} reads, "
           f"{int(reads.lengths.sum())} bases, made in "
           f"{time.perf_counter() - t0:.1f} s")
-    with recording_prep() as calls:
-        res, _ = run_main(reads, BellaConfig(), "demo", state, truth=truth)
+    res, _ = run_main(reads, BellaConfig(), "demo", state, truth=truth)
     state["demo_reads"], state["demo_pairs"] = reads, res.pairs
     state["demo_rows"], state["demo_scores"] = res.rows, res.alignment.score
     info = state["runs"]["demo"]
@@ -841,11 +886,10 @@ def phase_demo(state: dict) -> None:
         raise AssertionError(f"demo anchors differ: got {got}, "
                              f"want {DEMO_ANCHORS}")
     print(f"demo anchors hold: {got}")
-    # first, middle and last first-pass batch, and the first cascade batch
-    first = -(-res.pairs.num_pairs // BellaConfig().align_batch)
-    check_in_path_prep(calls, (0, first // 2, first - 1, first), "demo",
-                       state)
-    state["demo_prep_calls"] = calls  # K3's row of the kernel table
+    # the first pass as one level against its former batches; their K3
+    # calls give K3's row of the kernel table
+    state["demo_prep_calls"] = level_against_batches(
+        reads, res.pairs, BellaConfig(), "demo", state)
 
 
 def phase_adaptive(state: dict) -> None:
@@ -858,6 +902,7 @@ def phase_adaptive(state: dict) -> None:
     against one device."""
     import torch
 
+    from bella_tpu_torch.align import _build
     from bella_tpu_torch.align import pallas_xdrop as P
     from bella_tpu_torch.align import xdrop as X
     from bella_tpu_torch.config import BellaConfig
@@ -891,66 +936,74 @@ def phase_adaptive(state: dict) -> None:
         raise AssertionError(f"{label}: detection anchors differ: {got}")
     if got["levels"] or got["tail_pairs"]:
         raise AssertionError(f"{label}: the adaptive path ran a cascade")
-    if counts["xdrop_adaptive"] <= 1 or counts["xdrop_static"]:
-        raise AssertionError(f"{label}: K2 was not the path's kernel: "
+    if counts["xdrop_adaptive"] != 1 or counts["xdrop_static"]:
+        raise AssertionError(f"{label}: K2 was not the path's one launch: "
                              f"{counts}")
     if ADAPTIVE_ANCHORS is not None and got != ADAPTIVE_ANCHORS:
         raise AssertionError(f"{label} anchors differ: got {got}, want "
                              f"{ADAPTIVE_ANCHORS}")
 
-    # every extension of the path again, with steps: K2 alone on D
+    # every extension of the path again, with steps, as the path runs
+    # them (one descriptor-fed launch) and as the batches of K3 and K2 it
+    # ran before: K2 alone on D
+    level_against_batches(reads, res.pairs, cfg, label, state)
+    lv = state["levels"][label]
     pairs = res.pairs
     rd = X._upload_reads(reads, "cuda")
     lens = reads.lengths
     pair_len = np.maximum(lens[pairs.read_h], lens[pairs.read_v])
     W = int(cfg.band_width)
-    spans, byts, steps, ext, launches = [], 0, 0, 0, 0
-    for _, e in X.extension_batches(rd, pairs, np.arange(pairs.num_pairs),
-                                    pair_len, cfg.kmer_size, cfg.align_batch):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = P.run_xdrop(e["T"], e["t_len"], e["Q"], e["q_len"], cfg.xdrop,
-                          W, 2 * e["L"], True, with_steps=True)
-        b.record()
-        spans.append((a, b))
-        byts += _bound_parts(e["T"], e["Q"], out[3], W)[0]
-        steps += int(out[3].sum())
-        ext += e["T"].shape[0]
-        launches += 1
-    torch.cuda.synchronize()
-    k2_ms = sum(a.elapsed_time(b) for a, b in spans)
+    ext = X.extension_streams(
+        rd, X._pair_block(pairs, np.arange(pairs.num_pairs), "cuda"),
+        cfg.kmer_size)
+    before = _build.launches()
+    out = P.run_streams(ext["T"], ext["Q"], cfg.xdrop, W, P.NO_CAP, True,
+                        longest=int(pair_len.max()), with_steps=True)
+    rerun = sum(_build.launches()[k] - before[k]
+                for k in ("xdrop_static", "xdrop_adaptive"))
+    steps = int(out[3].sum())
+    n_ext = int(out.shape[1])
+    byts = stream_bytes(reads, n_ext)
     bound, by = _bound_of(byts, OPS_PER_CELL * W * steps)
-    print(f"{label}: K2 alone on its {ext} extensions in {launches} "
-          f"launches, W={W}: {k2_ms:.1f} ms, {steps} antidiagonals "
-          f"(mean {steps / max(ext, 1):.1f}), bound {bound:.3f} ms ({by}), "
-          f"{100 * bound / k2_ms:.2f} % of it", flush=True)
+    k2_ms = cuda_ms(lambda: P.run_streams(
+        ext["T"], ext["Q"], cfg.xdrop, W, P.NO_CAP, True,
+        longest=int(pair_len.max())))
+    print(f"{label}: K2 alone on its {n_ext} extensions in {rerun} launches, "
+          f"W={W}: {k2_ms:.1f} ms ({lv['batched_ms']:.1f} ms in "
+          f"{lv['batched_launches']} batched launches), {steps} "
+          f"antidiagonals (mean {steps / max(n_ext, 1):.1f}), bound "
+          f"{bound:.3f} ms ({by}), {100 * bound / k2_ms:.2f} % of it",
+          flush=True)
+    del ext, out
 
     # a sample of D's pairs: K2 against its plain version on the card
     rng = np.random.default_rng(6)
     sel = np.sort(rng.choice(pairs.num_pairs, ADAPTIVE_SAMPLE, replace=False))
-    (_, e), = X.extension_batches(rd, pairs, sel, pair_len, cfg.kmer_size,
-                                  len(sel))
-    args = (e["T"], e["t_len"], e["Q"], e["q_len"], cfg.xdrop, W, 2 * e["L"],
-            True)
-    kern = P.run_xdrop(*args, with_steps=True)
+    e = X.extension_streams(rd, X._pair_block(pairs, sel, "cuda"),
+                            cfg.kmer_size)
+    L = -(-int(pair_len[sel].max()) // 16) * 16
+    args = (e["T"], e["Q"], cfg.xdrop, W, P.NO_CAP, True)
+    kern = P.run_streams(*args, longest=L, with_steps=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = P.xdrop_plain(*args, with_steps=True)
+    plain = P.xdrop_plain(P.stream_rows(e["T"], L), e["T"].len,
+                          P.stream_rows(e["Q"], L), e["Q"].len, cfg.xdrop, W,
+                          P.NO_CAP, True, with_steps=True)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    sample_ms = cuda_ms(lambda: P.run_xdrop(*args))
+    sample_ms = cuda_ms(lambda: P.run_streams(*args, longest=L))
     err = int((kern.to(torch.int64) - plain.to(torch.int64)).abs().max())
-    print(f"{label}: K2 on {len(sel)} of D's pairs ({e['T'].shape[0]} "
-          f"extensions, L={e['L']}): max |kernel - plain| = {err} (score, "
+    print(f"{label}: K2 on {len(sel)} of D's pairs ({kern.shape[1]} "
+          f"extensions, L={L}): max |kernel - plain| = {err} (score, "
           f"ends, steps); kernel {sample_ms:.3f} ms, plain on the card "
           f"{plain_ms:.1f} ms", flush=True)
     state["adaptive"] = dict(
         launches=counts["xdrop_adaptive"],
         in_path_ms=info["kernel_ms"].get("xdrop_adaptive", 0.0), ms=k2_ms,
-        bound_ms=bound, bound_by=by, extensions=ext, rerun_launches=launches,
+        bound_ms=bound, bound_by=by, extensions=n_ext, rerun_launches=rerun,
         antidiagonals=steps, W=W, sample_err=err, sample_plain_ms=plain_ms,
-        sample_ms=sample_ms, sample_extensions=int(e["T"].shape[0]))
+        sample_ms=sample_ms, sample_extensions=int(kern.shape[1]),
+        batched_ms=lv["batched_ms"], batched_launches=lv["batched_launches"])
     if err:
         raise AssertionError("K2 disagrees with its plain version on D")
     del rd, e, args, kern, plain
@@ -1095,14 +1148,15 @@ def phase_long(state: dict) -> None:
     rng = np.random.default_rng(17)
     Tb, tlb, Qb, qlb = random_batch(rng, 48, 3000)
     Twb, Qwb = P.pack_words(Tb), P.pack_words(Qb)
+    ts, qs = P.row_streams(Twb, tlb), P.row_streams(Qwb, qlb)
     for adaptive, bands in ((False, (128, 256, 384, 512, 1024, 2048)),
                             (True, (64, 100, 128, 1024))):
         cap = 6000 if adaptive else P.static_step_cap(2 * 16 * Twb.shape[1])
         for W in bands:
-            a = P.launch_xdrop(Twb, tlb, Qwb, qlb, 25, W, cap, adaptive, True,
-                               long_key=False)
-            b = P.launch_xdrop(Twb, tlb, Qwb, qlb, 25, W, cap, adaptive, True,
-                               long_key=True)
+            a = P.launch_streams(ts, qs, 25, W, cap, adaptive, True,
+                                 long_key=False)
+            b = P.launch_streams(ts, qs, 25, W, cap, adaptive, True,
+                                 long_key=True)
             e = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
             errs.append(e)
             print(f"{'K2' if adaptive else 'K1'} W={W}: max |long key - int32 "
@@ -1878,9 +1932,7 @@ def phase_native(state: dict) -> None:
         got = f.read()
     ok = (got == "".join(state["demo_rows"]).encode()
           and res.num_output == DEMO_ANCHORS["rows"]
-          and launches["xdrop_static"] > 0
-          and launches["ext_prep"] == launches["xdrop_static"]
-          + launches["xdrop_adaptive"])
+          and launches["xdrop_static"] > 0 and not launches["ext_prep"])
     info = dict(device="cuda:0", bytes=len(got), rows=res.num_output,
                 wall_s=wall,
                 build_s=build_s, fastq_bytes=os.path.getsize(path),
@@ -2153,6 +2205,14 @@ def _bound_parts(T, Q, steps, W: int) -> tuple:
             OPS_PER_CELL * W * int(steps.sum()))
 
 
+def stream_bytes(reads, extensions: int) -> int:
+    """Bytes a descriptor-fed launch reads and writes at least: the reads'
+    packed words once; each extension's two descriptors and two lengths,
+    and its three result rows."""
+    return (4 * int((-(-reads.lengths.astype(np.int64) // 16)).sum())
+            + (2 * 8 + 2 * 4 + 3 * 4) * extensions)
+
+
 def _bound_of(byts: int, ops: int) -> tuple:
     """(ms, what binds) of the larger of bytes at the memory rate and
     operations at the peak rate."""
@@ -2203,39 +2263,6 @@ def tail_ratio(steps, slots: int) -> float:
     return list_span(steps, slots) / even if even else 1.0
 
 
-def block_per_extension_slots(W: int) -> int:
-    """Extensions in flight when each takes one block of min(W, 256)
-    threads (at most 2,048 threads per SM)."""
-    import torch
-
-    threads = min(256, -(-W // 32) * 32)
-    return torch.cuda.get_device_properties(0).multi_processor_count * min(
-        32, 2048 // threads)
-
-
-def launch_tails(batches, outs, launch, W: int) -> list:
-    """For each launch of `batches`: its time on the card alone, its
-    extension count, mean and max steps, and its tail ratio under two
-    schedules: a block per extension in input order, and the kernel's
-    own (its resident warp groups, longest first)."""
-    from bella_tpu_torch.align import pallas_xdrop as P
-    from bella_tpu_torch.utils.measure import cuda_ms
-
-    slots = P.resident_extensions(W, False)
-    rows = []
-    for (T, tl, Q, ql, _), o in zip(batches, outs):
-        steps = o["steps"].cpu().numpy()
-        order = P.longest_first(tl, ql).cpu().numpy()
-        rows.append(dict(
-            ms=cuda_ms(lambda: launch(T, tl, Q, ql), reps=1),
-            n=int(len(steps)), mean_steps=float(steps.mean()),
-            max_steps=int(steps.max()),
-            tail_block_per_ext=tail_ratio(steps, block_per_extension_slots(W)),
-            slots=slots, tail_longest_first=tail_ratio(steps[order], slots),
-        ))
-    return rows
-
-
 def phase_table(state: dict) -> list:
     import torch
 
@@ -2246,50 +2273,90 @@ def phase_table(state: dict) -> list:
 
     cfg = BellaConfig()
     rows = []
-    # K1: the bench main path's first pass (every pair, W = pallas_band)
-    P_ = state["bench_result"].pairs.num_pairs
-    b1 = _batches(state, np.arange(P_))
+    # K1: the bench main path's first pass (every pair, W = pallas_band),
+    # as the path runs it: one descriptor-fed launch
+    reads = state["bench_reads"]
+    pairs = state["bench_result"].pairs
+    P_ = pairs.num_pairs
+    rd = X._upload_reads(reads, "cuda")
+    lens = reads.lengths
+    longest = int(np.maximum(lens[pairs.read_h], lens[pairs.read_v]).max())
+    ext = X.extension_streams(rd, X._pair_block(pairs, np.arange(P_),
+                                                "cuda"), cfg.kmer_size)
     W1 = P.round_band(cfg.pallas_band)
 
-    def k1():
-        return [P.extend_batch_packed(T, tl, Q, ql, cfg.xdrop,
-                                      band=cfg.pallas_band, with_steps=True)
-                for T, tl, Q, ql, _ in b1]
+    def k1(with_steps=False):
+        return P.run_streams(ext["T"], ext["Q"], cfg.xdrop, W1, P.NO_CAP,
+                             False, longest=longest, with_steps=with_steps)
 
     ms1 = cuda_ms(k1)
-    out_k = k1()
+    out1 = k1(True)
+    # the same launch on a sample of the pass (its longest pairs and
+    # random others, both strands, so every kind of descriptor) against
+    # the plain version of the streams gathered from the reads' words
+    pair_len = np.maximum(lens[pairs.read_h], lens[pairs.read_v])
+    rng = np.random.default_rng(14)
+    sel = np.union1d(np.argsort(pair_len, kind="stable")[-K1_LONGEST:],
+                     rng.choice(P_, K1_SAMPLE, replace=False))
+    e = X.extension_streams(rd, X._pair_block(pairs, sel, "cuda"),
+                            cfg.kmer_size)
+    kinds = (e["T"].at & 3).unique().tolist()
+    rc = pairs.seed_rc[sel]
+    if sorted(kinds) != [0, 1, 2, 3] or not rc.any() or rc.all():
+        raise AssertionError(f"K1's sample misses a strand: kinds {kinds}")
+    Ls = -(-int(pair_len[sel].max()) // 16) * 16
+    kern_s = P.run_streams(e["T"], e["Q"], cfg.xdrop, W1, P.NO_CAP, False,
+                           longest=Ls, with_steps=True)
     torch.cuda.synchronize()
-    tails = launch_tails(
-        b1, out_k, lambda T, tl, Q, ql: P.extend_batch_packed(
-            T, tl, Q, ql, cfg.xdrop, band=cfg.pallas_band), W1)
-    for i, t in enumerate(tails):
-        print(f"K1 bench first pass launch {i}: " + json.dumps(t))
-    # the plain version (~0.8 ms per antidiagonal, ~2 min over the whole
-    # pass) runs on the first launch only: its extensions, 8,192 of the
-    # shortest pairs, stand for the pass in plain_ms and in max_abs_err
-    sub = b1[:1]
     t0 = time.perf_counter()
-    out_p = [P.extend_batch_packed_plain(T, tl, Q, ql, cfg.xdrop,
-                                         band=cfg.pallas_band, with_steps=True)
-             for T, tl, Q, ql, _ in sub]
+    plain_s = P.xdrop_plain(P.stream_rows(e["T"], Ls), e["T"].len,
+                            P.stream_rows(e["Q"], Ls), e["Q"].len, cfg.xdrop,
+                            W1, P.NO_CAP, False, with_steps=True)
+    torch.cuda.synchronize()
+    sample = dict(
+        pairs=len(sel), extensions=int(kern_s.shape[1]), L=Ls,
+        max_steps=int(kern_s[3].max()),
+        plain_ms=1e3 * (time.perf_counter() - t0),
+        err=int((kern_s.to(torch.int64) - plain_s.to(torch.int64)
+                 ).abs().max()))
+    print(f"bench first pass: K1 on {len(sel)} pairs (the {K1_LONGEST} "
+          f"longest, both strands): " + json.dumps(sample), flush=True)
+    del e, kern_s, plain_s
+    # the plain version (~0.8 ms per antidiagonal, ~2 min over the whole
+    # pass) runs on the first former batch only: its extensions, 8,192 of
+    # the shortest pairs, stand for the pass in plain_ms and in max_abs_err
+    sub = _batches(state, np.arange(P_))[:1]
+    T, tl, Q, ql, _ = sub[0]
+    out_k = P.extend_batch_packed(T, tl, Q, ql, cfg.xdrop,
+                                  band=cfg.pallas_band, with_steps=True)
+    sub_ms = cuda_ms(lambda: P.extend_batch_packed(T, tl, Q, ql, cfg.xdrop,
+                                                   band=cfg.pallas_band))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = P.extend_batch_packed_plain(T, tl, Q, ql, cfg.xdrop,
+                                        band=cfg.pallas_band, with_steps=True)
     torch.cuda.synchronize()
     plain1 = 1e3 * (time.perf_counter() - t0)
-    err1 = max(same(a, b) for a, b in zip(out_k, out_p))
-    bound1, by1 = _bound_ms(b1, [o["steps"] for o in out_k], W1)
-    sub_shapes = (f"first launch: {sub[0][0].shape[0]} extensions, kernel "
-                  f"{tails[0]['ms']:.3f} ms")
+    err1 = max(same(out_k, out_p), sample["err"])
+    n1 = int(out1.shape[1])
+    bound1, by1 = _bound_of(stream_bytes(reads, n1),
+                            OPS_PER_CELL * W1 * int(out1[3].sum()))
+    lv = state["levels"]
     rows.append(dict(
         name="xdrop_static (K1)", route="cuda",
         source="bella_tpu_torch/align/csrc/xdrop.cu",
         replaces="bella_tpu/align/pallas_xdrop.py:98",
         launches=state["k1_launches"],
-        max_abs_err=max(err1, state["k1_err"], state["long"]["K1"]["err"]),
+        max_abs_err=max(err1, state["k1_err"], state["long"]["K1"]["err"],
+                        lv["bench"]["err"], lv["demo"]["err"]),
         ms=ms1, plain_ms=plain1, bound_ms=bound1, bound_by=by1,
         library_ms=None,
-        shapes=f"bench first pass: {sum(T.shape[0] for T, *_ in b1)} "
-               f"extensions in {len(b1)} launches, W={W1}",
-        plain_shapes=sub_shapes,
+        shapes=f"bench first pass: {n1} extensions in one launch, W={W1}",
+        plain_shapes=f"first former batch: {T.shape[0]} extensions, kernel "
+                     f"{sub_ms:.3f} ms",
+        levels={k: lv[k] for k in ("bench", "demo")}, sample=sample,
     ))
+    del ext, out1
     # K2: the adaptive tail of the capped-cascade bench run
     b2 = _batches(state, state["tail_pairs"])
 
@@ -2333,9 +2400,9 @@ def phase_table(state: dict) -> list:
                         bound_by=by2, launches=state["k2_launches"],
                         extensions=sum(T.shape[0] for T, *_ in b2)),
     ))
-    # K3: every extension prep of dataset D's static main path (first
-    # pass, cascade, tail), on the inputs the run gave it; the plain
-    # version is the eager code the main path ran before K3
+    # K3: off the main path; the extension prep of dataset D's first pass
+    # in the batches the path took before its levels became single
+    # launches; the plain version is the eager code of before K3
     calls = state["demo_prep_calls"]
 
     def k3():
@@ -2354,16 +2421,15 @@ def phase_table(state: dict) -> list:
         name="ext_prep (K3)", route="cuda",
         source="bella_tpu_torch/align/csrc/xdrop.cu",
         replaces="bella_tpu/align/xdrop.py:416",
-        launches=state["k3_launches"],
+        launches=None,  # the main-path runs' sum, below
         max_abs_err=max([state["k3_err"]] + [
-            v["err"] for v in state["k3_in_path"].values()]),
+            v["err"] for v in state["levels"].values()]),
         ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by=by3,
         library_ms=None,
-        shapes=f"dataset D, static path: {len(calls)} launches, "
+        shapes=f"dataset D's first pass in its former batches: "
+               f"{len(calls)} launches, "
                f"{sum(c[1].shape[1] for c in calls)} pairs, L "
-               f"{min(widths)}-{max(widths)}; in-path "
-               f"{state['runs']['demo']['kernel_ms']['ext_prep']:.1f} ms",
-        in_path=state["k3_in_path"],
+               f"{min(widths)}-{max(widths)}; on the main path none",
     ))
     # each kernel's launches on every main-path run, and the x-drop
     # kernels' long-key instantiation at the long phase's shape (plain
@@ -2382,6 +2448,7 @@ def phase_table(state: dict) -> list:
             r["long_key"] = {k: state["long"][lk][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "err", "W",
                 "lengths")}
+    rows[2]["launches"] = sum(rows[2]["launches_by_run"].values())
     for r in rows:
         what = "the extension prep" if r is rows[2] else "x-drop"
         print(f"kernel {r['name']}: {r['ms']:.3f} ms on the card, plain "

@@ -24,10 +24,10 @@ and the two medians are set side by side):
      recorded at the cuts, so the card's work goes to the part that
      enqueued it) and on the host's. Nothing is synchronised that the
      run does not synchronise itself. The parts: the reads' upload;
-     the pair block's upload (_pair_block, one a batch); extension prep
-     (prepare_batch: kernel K3 on the card, its plain version's per-base
-     gathers and packing on the CPU); K1 and K2
-     (run_xdrop; their kernels also with CUDA events around the launch);
+     the pair block's upload (_pair_block, one a launch); extension prep
+     (extension_streams: the streams' descriptors); K1 and K2
+     (run_streams, with the plain versions' per-base gathers and packing
+     on the CPU; their kernels also with CUDA events around the launch);
      _combine_extensions; each pass's batch loop (_extend_pairs: pair
      columns, the launch inputs, the results' scatter): the first pass,
      the cascade rounds, the adaptive pass, the tail; _predict_due; the
@@ -210,14 +210,14 @@ def part_patches(split: Split, config) -> list:
     split.first_band = int(config.pallas_band)
 
     def kernel(s, a, k):
-        adaptive = a[7] if len(a) > 7 else k["adaptive"]
+        adaptive = a[5] if len(a) > 5 else k["adaptive"]
         return "K2" if adaptive else "K1"
 
-    run = split.wrap(P.run_xdrop, kernel)
+    run = split.wrap(P.run_streams, kernel)
     parts = [
         (X, "_upload_reads", "reads upload"),
         (X, "_pair_block", "prep: pair block upload"),
-        (X, "prepare_batch", "extension prep"),
+        (X, "extension_streams", "extension prep"),
         (X, "_combine_extensions", "combine"),
         (X, "_extend_pairs", _pass_of),
         (X, "_predict_due", "cascade: _predict_due"),
@@ -225,7 +225,7 @@ def part_patches(split: Split, config) -> list:
         (X, "_align_share", "cascade bookkeeping"),
         (X, "_align_check", "selfcheck"),
     ]
-    return [(P, "run_xdrop", run), (X, "run_xdrop", run)] + [
+    return [(P, "run_streams", run), (X, "run_streams", run)] + [
         (m, name, split.wrap(getattr(m, name), label))
         for m, name, label in parts]
 

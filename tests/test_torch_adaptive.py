@@ -23,6 +23,7 @@ from bella_tpu.align.xdrop import align_candidates as ref_align
 from bella_tpu.align.xdrop import pad_reads as ref_pad_reads
 from bella_tpu.io import ReadSet as RefReadSet
 from bella_tpu.pipeline import run_pipeline as ref_run
+from bella_tpu_torch.align import pallas_xdrop as P
 from bella_tpu_torch.align import xdrop as X
 from bella_tpu_torch.config import (
     DROPPED_FIELDS, BellaConfig, config_from_reference,
@@ -147,31 +148,36 @@ def test_align_candidates_padded_matches_reference(reads, ref_runs):
 
 
 def test_every_pair_goes_through_k2(reads, ref_runs, monkeypatch):
-    """Every extension of the adaptive path is one run_xdrop call in
-    adaptive mode at band_width, with the step cap exactly max_steps when
-    it is set (2 * the batch's width otherwise); K1 is never called."""
+    """Every extension of the adaptive path goes through K2's entry
+    (run_streams in adaptive mode at band_width), one call a batch of the
+    plain version, with the step cap exactly max_steps when it is set and
+    otherwise one that no extension reaches (at least its t_len + q_len);
+    K1 is never called."""
     calls = []
-    run = X.run_xdrop
+    run = X.run_streams
 
-    def spy(Tw, t_len, Qw, q_len, xdrop, W, cap, adaptive, *a):
-        calls.append((Tw.shape[0], W, cap, adaptive, 16 * Tw.shape[1]))
-        return run(Tw, t_len, Qw, q_len, xdrop, W, cap, adaptive, *a)
+    def spy(ts, qs, xdrop, W, cap, adaptive, *a, **kw):
+        calls.append((len(ts.len), W, cap, adaptive,
+                      int((ts.len + qs.len).max())))
+        return run(ts, qs, xdrop, W, cap, adaptive, *a, **kw)
 
     def no_k1(*a, **k):
         raise AssertionError("the adaptive path called K1")
 
-    monkeypatch.setattr(X, "run_xdrop", spy)
-    monkeypatch.setattr(X, "extend_batch_packed", no_k1)
+    monkeypatch.setattr(X, "run_streams", spy)
+    monkeypatch.setattr(X, "run_xdrop", no_k1)
     pairs = ref_runs["default"].pairs
     lens = reads.lengths.astype(np.int32)
-    for kw, cap in ((dict(band_width=31, max_steps=300), lambda L: 300),
-                    (dict(), lambda L: 2 * L)):
+    for kw, cap in ((dict(band_width=31, max_steps=300), 300),
+                    (dict(), P.NO_CAP)):
         calls.clear()
         X.align_candidates(None, lens, pairs, _port_config(**kw),
                            batch_size=16, reads=reads, device="cpu")
         W = kw.get("band_width", 128)
         assert sum(c[0] for c in calls) == 2 * pairs.num_pairs
-        assert all(c[1:4] == (W, cap(c[4]), True) for c in calls), calls
+        assert len(calls) == -(-pairs.num_pairs // 16)
+        assert all(c[1:4] == (W, cap, True) for c in calls), calls
+        assert kw or all(c[2] >= c[4] for c in calls)
 
 
 def test_selfcheck_runs_no_kernel_check(reads, adaptive_default,

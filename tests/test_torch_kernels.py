@@ -251,7 +251,8 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError):  # int64 lengths
         P.extend_batch_packed(Tw, tl.long(), Qw, ql, XDROP)
     with pytest.raises(ValueError):  # the kernel launcher takes CUDA tensors
-        P.launch_xdrop(Tw, tl, Qw, ql, XDROP, 128, 1024, False)
+        P.launch_streams(P.row_streams(Tw, tl), P.row_streams(Qw, ql), XDROP,
+                         128, 1024, False)
 
 
 LONG = (1 << 17) + 100  # bases on each side of the long extension

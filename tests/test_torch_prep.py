@@ -1,7 +1,8 @@
 """The extension prep of the port (prepare_batch: kernel K3 on the card,
 its plain version here) against bella_tpu's packed-word prep, on the CPU.
 
-The plain version equals bella_tpu's _prepare_extensions_packed on
+The plain version (extension_streams' descriptors gathered into rows)
+equals bella_tpu's _prepare_extensions_packed on
 _expand_words(pack_words_ragged(...)) base for base within every
 stream's length (bella_tpu leaves later reads' bases beyond a length;
 the port writes 'A'), at k = 17 and 31, with forward and reverse-
@@ -9,9 +10,15 @@ complement seeds, seeds at both ends of a read, read 0 and the last
 read of the stream, and a read over 65,535 bp. The batch width comes
 from the host and equals the width the card gave before. The slice as a
 whole (prep, the adaptive-band extension and the combine) equals
-bella_tpu's _seed_extend_batch. K3's launcher refuses CPU tensors, and
-a tensor on the card whose kernel cannot be built raises rather than
-taking the plain version.
+bella_tpu's _seed_extend_batch. The x-drop fed by the descriptors (its
+plain version: each stream gathered from the reads' words by its read,
+start, direction and complement) equals bella_tpu's prep followed by the
+x-drop's plain version on bella_tpu's rows, steps included, for all four
+stream kinds, both strands, zero-length streams and the reads at both
+ends of the word stream; word rows read back through their descriptors; on the card a level splits
+into a long-key and an int32-key launch only where its extensions need
+it. K3's launcher refuses CPU tensors, and a tensor on the card whose
+kernel cannot be built raises rather than taking the plain version.
 """
 
 from types import SimpleNamespace
@@ -24,8 +31,10 @@ import torch
 from bella_tpu.align import xdrop as RX
 from bella_tpu.io import ReadSet as RefReadSet
 from bella_tpu_torch.align import _build
+from bella_tpu_torch.align import pallas_xdrop as P
 from bella_tpu_torch.align import xdrop as X
 from bella_tpu_torch.io.fastq import ReadSet
+from bella_tpu_torch.utils import log as ulog
 import torch_test_support  # noqa: F401 (one torch thread)
 
 STREAMS = (("lt", "T", 0), ("rt", "T", 1), ("lq", "Q", 0), ("rq", "Q", 1))
@@ -86,9 +95,9 @@ def _bases(words) -> np.ndarray:
             ).reshape(len(w), -1).astype(np.uint8)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_prep_matches_bella_tpu(name):
-    k, reads, pairs, got = _port(name)
+def _bella_tpu_prep(k, reads, pairs) -> dict:
+    """bella_tpu's packed-word prep of every pair (its four streams, their
+    lengths and the seed ends), as numpy arrays."""
     flat, off_w = RX.pack_words_ragged(
         RefReadSet(list(reads.names), reads.codes, reads.offsets))
     Wp = int(-(-reads.lengths.max() // 16))
@@ -100,6 +109,13 @@ def test_plain_prep_matches_bella_tpu(name):
         words, jnp.asarray(reads.lengths.astype(np.int32)), col["read_h"],
         col["read_v"], col["pos_h"], col["pos_v"],
         jnp.asarray(pairs.seed_rc), k)
+    return {key: np.asarray(v) for key, v in ref.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_prep_matches_bella_tpu(name):
+    k, reads, pairs, got = _port(name)
+    ref = _bella_tpu_prep(k, reads, pairs)
     B = len(pairs.read_h)
     for key in ("seed_end_h", "seed_end_v"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]))
@@ -149,6 +165,129 @@ def test_extension_batches_width_from_the_host():
             assert torch.equal(ext[key], want[key]), key
         n += 1
     assert n == -(-len(sel) // 7)
+
+
+# xdrop so large that no extension drops: every extension runs to its
+# end or to the step cap, across dozens of words of both streams
+NO_DROP = 100_000
+DEEP = 1000
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_streams_xdrop_matches_prep_then_xdrop(name, adaptive):
+    """The x-drop fed by the descriptors (run_streams on CPU tensors)
+    against bella_tpu's prep followed by the x-drop's plain version on
+    the rows bella_tpu wrote, steps included."""
+    k, reads, pairs = _case(name)
+    rd = X._upload_reads(reads, "cpu")
+    blk = X._pair_block(pairs, np.arange(len(pairs.read_h)), "cpu")
+    ext = X.extension_streams(rd, blk, k)
+    ref = _bella_tpu_prep(k, reads, pairs)
+    B = len(pairs.read_h)
+
+    def rows(a, b):
+        return torch.from_numpy(np.concatenate([ref[a], ref[b]]).view(
+            np.int32))
+
+    def lens(a, b):
+        return torch.from_numpy(np.concatenate(
+            [ref[a + "_len"], ref[b + "_len"]]).astype(np.int32))
+
+    T, t_len, Q, q_len = rows("lt", "rt"), lens("lt", "rt"), \
+        rows("lq", "rq"), lens("lq", "rq")
+    for key, got, want in (
+            ("t_len", ext["T"].len, t_len), ("q_len", ext["Q"].len, q_len),
+            ("seed_end_h", ext["seed_end_h"], ref["seed_end_h"]),
+            ("seed_end_v", ext["seed_end_v"], ref["seed_end_v"])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=key)
+    # both strands of H, all four kinds of descriptor, and empty left and
+    # right streams on both sides
+    assert pairs.seed_rc.any() and not pairs.seed_rc.all()
+    for n in (t_len, q_len):
+        assert (n[:B] > 0).all() and (n[B:] == 0).any()
+    assert (ext["T"].at & 3).unique().tolist() == [0, 1, 2, 3]
+    got = P.run_streams(ext["T"], ext["Q"], NO_DROP, 128, DEEP, adaptive,
+                        longest=int(reads.lengths.max()), with_steps=True)
+    want = P.xdrop_plain(T.contiguous(), t_len, Q.contiguous(), q_len,
+                         NO_DROP, 128, DEEP, adaptive, with_steps=True)
+    assert torch.equal(got, want)
+    assert (got[3] == DEEP).any() and (got[3] < DEEP).any()
+
+
+def test_row_streams_read_back_the_rows():
+    """Word rows as descriptors (row e at flat base 16 e stride, forwards,
+    not complemented) give back each row up to its length, also for rows
+    cut from a wider matrix."""
+    g = torch.Generator().manual_seed(5)
+    wide = torch.randint(-2**31, 2**31 - 1, (6, 9), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    Tw = wide[:, 2:7]
+    lens = torch.tensor([0, 1, 16, 17, 79, 80], dtype=torch.int32)
+    s = P.row_streams(Tw, lens)
+    got = P.stream_rows(s, 80)
+    bases = _bases(got.numpy())
+    want = _bases(Tw.contiguous().numpy())
+    for b in range(6):
+        n = int(lens[b])
+        np.testing.assert_array_equal(bases[b, :n], want[b, :n])
+        assert not bases[b, n:].any()
+
+
+class _CardLike(torch.Tensor):
+    """A host tensor that says it lies on the card (its device stays the
+    CPU)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("case,launches", [
+    ("short", [(5, False)]),
+    ("long xdrop", [(5, True)]),
+    ("long reads", [(2, True), (3, False)]),
+])
+def test_level_splits_by_key_on_the_card(case, launches, monkeypatch):
+    """On the card a level runs in one int32-key launch while its reads
+    and xdrop lie below INT32_KEY_EXTENT, in one long-key launch when
+    xdrop needs it, and otherwise as a long-key launch of the extensions
+    that need it and an int32-key launch of the rest, each result back at
+    its extension."""
+    E = P.INT32_KEY_EXTENT
+    lens = torch.tensor([3, E, 7, E + 5, 11], dtype=torch.int32)
+    other = torch.tensor([4, 9, 8, 2, 1], dtype=torch.int32)
+    words = torch.zeros(4, dtype=torch.int32)
+    at = torch.arange(5, dtype=torch.int64) * 40
+    if case == "short":
+        lens = lens % 100
+    ts = P.Streams(words, at.as_subclass(_CardLike),
+                   lens.as_subclass(_CardLike))
+    qs = P.Streams(words, at.as_subclass(_CardLike),
+                   other.as_subclass(_CardLike))
+    made = []
+
+    def launch(ts, qs, xdrop, W, cap, adaptive, with_steps=False,
+               long_key=False):
+        made.append((len(ts.len), long_key))
+        n = torch.as_tensor(ts.len).to(torch.int32)
+        return torch.stack([n, (torch.as_tensor(ts.at) >> 3).to(torch.int32),
+                            torch.full_like(n, int(long_key))])
+
+    monkeypatch.setattr(P, "launch_streams", launch)
+    ulog.reset()
+    xdrop = E if case == "long xdrop" else 7
+    out = P.run_streams(ts, qs, xdrop, 128, P.NO_CAP, False,
+                        longest=int(lens.max()))
+    assert made == launches
+    assert out[0].tolist() == lens.tolist()
+    assert out[1].tolist() == (at >> 3).tolist()
+    if case == "long reads":
+        assert out[2].tolist() == [0, 1, 0, 1, 0]
+        assert ulog.COUNTS["sync.align"] == 2
+    else:
+        assert "sync.align" not in ulog.COUNTS
 
 
 def test_slice_matches_seed_extend_batch():
@@ -220,7 +359,7 @@ def test_prep_on_card_raises_when_the_kernel_cannot_be_built(monkeypatch):
 
     monkeypatch.setattr(_build, "build", broken)
     monkeypatch.setattr(X, "prepare_batch_plain", plain)
-    monkeypatch.setattr(X, "_gather_words", plain)
+    monkeypatch.setattr(X, "stream_rows", plain)
     before = _build.launches()["ext_prep"]
     with pytest.raises(RuntimeError, match="xdrop.cu"):
         X.prepare_batch(card, blk, k, 3008)

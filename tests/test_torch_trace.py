@@ -7,8 +7,11 @@ drift past the static band (so the cascade and the tail run), the
 phases appear as bella.<phase> spans and every bella.align.* span lies
 inside bella.alignment. count() from four threads at once adds up, and
 reset() clears the phase seconds and the counters together. The
-cascade's counters agree with AlignmentResult.rescue_levels. A host
-read of a card tensor counts one sync, of a host tensor none.
+cascade's counters agree with AlignmentResult.rescue_levels. The static
+aligner makes one x-drop call for the first pass, one a cascade level and
+one for the tail, and xdrop.extensions counts the extensions they ran;
+the batches the plain versions take change no result. A host read of a
+card tensor counts one sync, of a host tensor none.
 """
 
 import sys
@@ -20,6 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from bella_tpu_torch.align import pallas_xdrop as P
+from bella_tpu_torch.align import xdrop as X
 from bella_tpu_torch.config import BellaConfig
 from bella_tpu_torch.pipeline import run_pipeline
 from bella_tpu_torch.utils import log as ulog
@@ -102,6 +106,55 @@ def test_cascade_counters_match_rescue_levels(traced):
             <= extended)
     # nothing on the card, so no host sync counted
     assert "sync.align" not in counts
+
+
+def _align(res, config, batch_size=0):
+    from test_torch_adaptive import drift_corpus
+
+    reads = drift_corpus()
+    with logging_off():
+        return X.align_candidates(None, reads.lengths.astype(np.int32),
+                                  res.pairs, config, batch_size=batch_size,
+                                  reads=reads, device="cpu")
+
+
+def test_one_xdrop_call_a_level_and_extensions_counted(traced, monkeypatch):
+    res, _, counts = traced
+    calls = []
+    run = X.run_streams
+
+    def spy(ts, qs, xdrop, W, cap, adaptive, *a, **kw):
+        calls.append((len(ts.len), W, adaptive))
+        return run(ts, qs, xdrop, W, cap, adaptive, *a, **kw)
+
+    monkeypatch.setattr(X, "run_streams", spy)
+    cfg = BellaConfig(**CONFIG)
+    ulog.reset()
+    aln = _align(res, cfg)
+    tail = len(aln.tail_pairs)
+    assert aln.rescue_levels and tail
+    assert calls == ([(2 * res.pairs.num_pairs, 128, False)]
+                     + [(2 * n, band, False) for band, n in aln.rescue_levels]
+                     + [(2 * tail, cfg.band_width, True)])
+    assert ulog.COUNTS["xdrop.extensions"] == sum(c[0] for c in calls)
+    assert counts["xdrop.extensions"] == sum(c[0] for c in calls)
+
+
+@pytest.mark.parametrize("backend", ["auto", "jax"])
+def test_batch_size_changes_no_result(traced, backend):
+    """align_candidates with the plain versions' batches of 7 pairs gives
+    the AlignmentResult of their default batches, on the static path
+    through two cascade levels and on the adaptive path."""
+    res, _, _ = traced
+    cfg = BellaConfig(pallas_band=128, aligner_backend=backend)
+    one, small = _align(res, cfg), _align(res, cfg, batch_size=7)
+    assert res.pairs.num_pairs > 7 * 4
+    if backend == "auto":
+        assert len(one.rescue_levels) >= 2
+    for f in ("score", "beg_h", "end_h", "beg_v", "end_v", "strand_rc",
+              "tail_pairs"):
+        np.testing.assert_array_equal(getattr(small, f), getattr(one, f), f)
+    assert small.rescue_levels == one.rescue_levels
 
 
 def test_count_from_threads_adds_up_and_reset_clears_both():
