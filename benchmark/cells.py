@@ -11,7 +11,14 @@ metric is a file of its own, found by the name BENCHMARK.json gives it:
     and the file of read lengths it may name beside it;
   * each metric: benchmark/metrics/<metric name>.py, whose read(record)
     returns the metric's value from a run's record, or None where the
-    record holds nothing to read.
+    record holds nothing to read. The record (benchmark/run.py) holds
+    `passes`, `window_s`, `setup_s`, `corpus_bases`, `peak_bytes`,
+    `kind`, the port's phase seconds `phase_s` and counters `counts`
+    (a counter absent there counted nothing), and, traced, `trace`:
+    `busy_s`, `window_s`, `align_kernel_s`, `idle_in_span`,
+    `idle_by_innermost`, `span_s` (each bella.* span's host seconds) and
+    the rest that tracing.summarise gives. A metric whose entry lists
+    `workloads` is read in those cells alone.
 
 So a cell, a mix or a metric is added by adding files and entries.
 """
@@ -74,6 +81,24 @@ def phase_s_per_pass(record: dict, phases) -> object:
     if not record["passes"] or not got:
         return None
     return sum(got) / record["passes"]
+
+
+def counted(record: dict, names) -> object:
+    """The sum of the port's counters `names` over the window (utils/log.py's
+    COUNTS; one the run never counted reads 0); None where the record
+    holds no counters (a port without them)."""
+    counts = record.get("counts")
+    if counts is None:
+        return None
+    return sum(counts.get(n, 0) for n in names)
+
+
+def count_per_pass(record: dict, names) -> object:
+    """`counted` over the window's passes; None where it ran none."""
+    n = counted(record, names)
+    if n is None or not record["passes"]:
+        return None
+    return n / record["passes"]
 
 
 def _reader(root: Path, name: str) -> Callable[[dict], object]:

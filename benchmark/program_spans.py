@@ -1,4 +1,5 @@
-"""The card's idle time of a traced window, split by the port's own spans.
+"""The card's idle time of a traced window split by the port's own spans,
+and the host time of each span.
 
 bella_tpu_torch opens a ``record_function`` span ``bella.<name>`` for each
 phase and for the alignment driver's parts while a profiler runs
@@ -13,13 +14,18 @@ host spans are no work) and gives
 * ``idle_by_innermost``: each idle second given to the innermost
   ``bella.`` span open over it (the one opened last), else to
   ``OUTSIDE``; its values add up to ``idle_s``, the window's idle time.
+
+``span_s`` gives each ``bella.`` span name's host seconds inside the
+window: the union of its intervals, so a span that opens inside another
+of its name is not counted twice. Both take the events as
+``tracing.read`` gives them.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
 
-from benchmark.tracing import DEVICE_WORK, WINDOW, _events, _union
+from benchmark.tracing import DEVICE_WORK, _union, window
 
 PREFIX = "bella."
 OUTSIDE = "outside the program"
@@ -76,27 +82,42 @@ def _innermost(idle, spans) -> dict:
     return out
 
 
-def idle_split(kineto_events) -> dict:
-    """idle_s, idle_in_span and idle_by_innermost (seconds) of the traced
-    window, whose span tracing.WINDOW the events must hold."""
-    evs = list(_events(kineto_events))
-    win = [(s, t) for n, on_card, _, s, t in evs
-           if n == WINDOW and not on_card]
-    if not win:
-        raise RuntimeError(f"the trace holds no {WINDOW!r} span")
-    w0, w1 = min(s for s, _ in win), max(t for _, t in win)
-    idle = _idle([(s, t) for _, on_card, kind, s, t in evs
-                  if on_card and kind in DEVICE_WORK], w0, w1)
-    spans = sorted((max(s, w0), min(t, w1), n) for n, on_card, _, s, t in evs
-                   if not on_card and n.startswith(PREFIX)
-                   and min(t, w1) > max(s, w0))
+def _spans(events, w0: int, w1: int) -> list:
+    """(start, end, name) of the host's bella.* spans, cut to the window,
+    sorted."""
+    return sorted((max(s, w0), min(t, w1), n)
+                  for n, on_card, _, s, t in events
+                  if not on_card and n.startswith(PREFIX)
+                  and min(t, w1) > max(s, w0))
+
+
+def _by_name(spans) -> dict:
+    """Each span name's merged intervals."""
     by_name = defaultdict(list)
     for s, e, n in spans:
         by_name[n].append((s, e))
+    return {n: _union(iv) for n, iv in sorted(by_name.items())}
+
+
+def span_s(events) -> dict:
+    """Host seconds of each bella.* span name inside the traced window,
+    whose span tracing.WINDOW the events must hold."""
+    w0, w1 = window(events)
+    return {n: sum(e - s for s, e in iv) / 1e9
+            for n, iv in _by_name(_spans(events, w0, w1)).items()}
+
+
+def idle_split(events) -> dict:
+    """idle_s, idle_in_span and idle_by_innermost (seconds) of the traced
+    window, whose span tracing.WINDOW the events must hold."""
+    w0, w1 = window(events)
+    idle = _idle([(s, t) for _, on_card, kind, s, t in events
+                  if on_card and kind in DEVICE_WORK], w0, w1)
+    spans = _spans(events, w0, w1)
     return dict(
         idle_s=sum(e - s for s, e in idle) / 1e9,
-        idle_in_span={n: _overlap(idle, _union(iv)) / 1e9
-                      for n, iv in sorted(by_name.items())},
+        idle_in_span={n: _overlap(idle, iv) / 1e9
+                      for n, iv in _by_name(spans).items()},
         idle_by_innermost={n: ns / 1e9 for n, ns in
                            sorted(_innermost(idle, spans).items())},
     )

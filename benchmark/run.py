@@ -22,6 +22,15 @@ runs under torch.profiler, with a span around each call into a layer
 (benchmark/tracing.py), and the per-layer metrics are reported; with
 --trace 0 the end-to-end ones.
 
+The run's record, from which each metric's reader takes its number,
+holds the window's passes and clocks and the port's own phase seconds
+and counters (bella_tpu_torch.utils.log's PHASE_SECONDS and COUNTS,
+cleared as the window starts; counting is always on). Traced, it also
+holds what the profile gives, read once after the window: the card's
+busy time and the kernels inside the alignment spans (tracing.py), the
+idle time split by the port's bella.* spans and each such span's host
+seconds (program_spans.py).
+
 Then the last pass's pairs, alignments and rows file are held to the
 plain reference (benchmark/check.py), which decides `correct`. The last
 line of standard output is one JSON object; the numbers compared, each
@@ -94,7 +103,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     result object (the JSON line's content)."""
     import torch
 
-    from benchmark import check, tracing
+    from benchmark import check, program_spans, tracing
     from benchmark.gen.simulate import write_fastq
     from bella_tpu_torch import pipeline
     from bella_tpu_torch.config import BellaConfig
@@ -130,6 +139,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
                                     in zip(parts, marks)), file=sys.stderr)
 
         plog.PHASE_SECONDS.clear()
+        counts = getattr(plog, "COUNTS", {})  # the port's counters, if any
+        counts.clear()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         prof = None
@@ -162,31 +173,42 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
                             if dev.type == "cuda" else "cpu"),
                       setup_s=setup_s, passes=passes, window_s=window_s,
                       corpus_bases=corpus.bases, peak_bytes=peak,
-                      phase_s=dict(plog.PHASE_SECONDS), trace=None)
+                      phase_s=dict(plog.PHASE_SECONDS), counts=dict(counts),
+                      trace=None)
         breakdown = None
         if prof is not None:
             t1 = time.perf_counter()
-            summary = tracing.summarise(prof.profiler.kineto_results.events())
+            events = tracing.read(prof.profiler.kineto_results.events())
             del prof
+            summary = tracing.summarise(events)
+            split = program_spans.idle_split(events)
             per_pass = aligned_bases(res.alignment) if res else 0
             record["trace"] = dict(
                 summary, aligned_bases=per_pass * passes,
-                packed_bytes=corpus.bases // 4 * passes, band=_band(flags))
+                packed_bytes=corpus.bases // 4 * passes, band=_band(flags),
+                idle_in_span=split["idle_in_span"],
+                idle_by_innermost=split["idle_by_innermost"],
+                span_s=program_spans.span_s(events))
+            del events
             breakdown = dict(device_ops=summary["device_ops"],
                              idle_gaps=summary["idle_gaps"])
-            print(f"trace read in {time.perf_counter() - t1:.1f} s",
+            top = sorted(split["idle_by_innermost"].items(),
+                         key=lambda kv: -kv[1])[:5]
+            print(f"trace read in {time.perf_counter() - t1:.1f} s; idle by "
+                  "innermost span: " + ", ".join(f"{n} {v:.3f} s"
+                                                 for n, v in top),
                   file=sys.stderr)
 
-        compared, counts = [], {}
+        compared, checked = [], {}
         if res is not None:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             t1 = time.perf_counter()
-            compared, counts = check.compare(
+            compared, checked = check.compare(
                 corpus, flags, seed, cell.traffic["check"], res.pairs,
                 res.alignment, rows, dev,
                 workers or min(8, os.cpu_count() or 1))
-            print(f"check: {counts} in {time.perf_counter() - t1:.1f} s",
+            print(f"check: {checked} in {time.perf_counter() - t1:.1f} s",
                   file=sys.stderr)
     correct = passes > 0 and failed == 0 and check.verdict(compared)
     metrics = {}
@@ -208,7 +230,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         t = record["trace"]
         result["device"].update(busy_s=t["busy_s"], window_s=t["window_s"])
         result["breakdown"] = breakdown
-    result["checked"] = counts
+    result["checked"] = checked
     result["compared"] = {n: {"value": v, "limit": lim}
                           for n, v, lim in compared}
     return result

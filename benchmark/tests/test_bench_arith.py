@@ -56,7 +56,7 @@ def test_busy_union_and_gaps_on_synthetic_events():
         Ev("Memcpy HtoD", True, 60 * ms, 70 * ms),
         Ev("k2", True, 95 * ms, 105 * ms),    # cut at the window's end
     ]
-    s = tracing.summarise(evs)
+    s = tracing.summarise(tracing.read(evs))
     assert s["window_s"] == pytest.approx(0.1)
     assert s["busy_s"] == pytest.approx(0.040)
     # kernels inside the alignment span: 15 + 15 ms; not the copy, not k2
@@ -68,7 +68,7 @@ def test_busy_union_and_gaps_on_synthetic_events():
 
 
 def test_no_card_work_gives_no_busy_time():
-    s = tracing.summarise([Ev(tracing.WINDOW, False, 0, 10)])
+    s = tracing.summarise(tracing.read([Ev(tracing.WINDOW, False, 0, 10)]))
     assert s["busy_s"] is None
 
 

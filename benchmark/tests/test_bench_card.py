@@ -1,6 +1,8 @@
 """On the card: at d6k's canonical seed the port's pass holds dataset D's
 anchors (bench_torch.py): nnzA 13,996,132, 1,434,878 pairs, and 619,273
-rows on the static aligner, 619,271 on the adaptive one."""
+rows on the static aligner, 619,271 on the adaptive one; and a traced
+run of each cell there reads the launches and syncs a pass that the
+port's counters give."""
 
 import pytest
 
@@ -26,3 +28,24 @@ def test_canonical_d6k_holds_dataset_d_anchors(card, tmp_path, config, rows):
     assert res.nnz == 13_996_132
     assert res.pairs.num_pairs == 1_434_878
     assert res.num_output == rows
+
+
+@pytest.mark.parametrize("name,launches,syncs", [
+    ("clr-ecoli-30x.d6k", 6, 15), ("clr-ecoli-30x-adaptive.d6k", 1, 5)])
+def test_traced_canonical_d6k_counts_its_launches_and_syncs(card, name,
+                                                            launches, syncs):
+    """A traced run at the canonical seed: K1 at band 128 in one launch,
+    one a cascade level and one for the tail (static), or K2 alone
+    (adaptive), each pass; the syncs are the reads' uploads and each
+    launch's pair block and download."""
+    from benchmark.run import run_cell
+
+    cell = cells.load(name)
+    r = run_cell(cell, cell.traffic["canonical_seed"], 1.0, True,
+                 device=card)
+    assert r["correct"], r["compared"]
+    m = r["metrics"]
+    assert m["align.launches_per_pass"]["value"] == launches
+    assert m["align.syncs_per_pass"]["value"] == syncs
+    assert m["align.extensions_per_launch"]["value"] > 0
+    assert m["align.idle_s_per_pass"]["value"] > 0

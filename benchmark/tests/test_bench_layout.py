@@ -13,20 +13,33 @@ from conftest import ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-def spec():
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+def expected(s, key, cell):
+    """The metrics of s[key] that cell reports: those without a
+    `workloads` list, and those whose list names the cell."""
+    return {m["name"] for m in s[key]
+            if "workloads" not in m or cell in m["workloads"]}
 
 
-def test_every_cell_loads_with_its_metrics():
-    s = spec()
+def check_every_cell(root):
+    """Every cell of root/BENCHMARK.json loads with the metrics its
+    entries give it, each with its reader; every name is well formed and
+    unique, and every `workloads` list names cells of the file."""
+    s = json.loads((root / "BENCHMARK.json").read_text())
     assert set(s) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
+    names = {w["name"] for w in s["workloads"]}
+    for m in s["end_to_end"] + s["per_layer"]:
+        assert set(m.get("workloads", names)) <= names, m["name"]
     for w in s["workloads"]:
-        cell = cells.load(w["name"])
-        assert cell.chips == 1
-        assert {m.name for m in cell.end_to_end} == {
-            "corpus_bases_per_s", "peak_device_gb", "setup_s"}
-        assert len(cell.per_layer) == 6
+        cell = cells.load(w["name"], root)
+        assert cell.chips == w["chips"] and cell.chips in (1, 4)
+        e2e = {m.name for m in cell.end_to_end}
+        assert e2e == expected(s, "end_to_end", w["name"])
+        assert "setup_s" in e2e and len(e2e) >= 2
+        per_layer = [m.name for m in cell.per_layer]
+        assert len(per_layer) == len(set(per_layer))
+        assert set(per_layer) == expected(s, "per_layer", w["name"])
+        assert per_layer
         assert set(cell.config["flags"]) >= {
             "kmer_size", "xdrop", "error_rate", "bin_size", "lower_freq",
             "upper_freq", "delta_chernoff", "aligner_backend",
@@ -37,6 +50,35 @@ def test_every_cell_loads_with_its_metrics():
     assert len(names) == len(set(names))
     assert all(NAME.match(n) for n in names)
     assert len({c["source"] for c in s["configs"]}) == len(s["configs"])
+
+
+def test_every_cell_loads_with_its_metrics():
+    check_every_cell(ROOT)
+
+
+def test_metric_added_with_its_cells_passes_the_layout(tiny_root):
+    """A later change adds a reader file and its entry, with a
+    `workloads` list: every cell still loads, each with its metrics."""
+    (tiny_root / "benchmark/metrics/align.passes_seen.py").write_text(
+        "def read(record):\n    return record['passes']\n")
+    s = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    s["per_layer"].append({"name": "align.passes_seen", "unit": "passes",
+                           "better": "higher", "source": "program_counter",
+                           "layer": "alignment driver",
+                           "moves": "corpus_bases_per_s",
+                           "workloads": ["clr-ecoli-30x.tiny"]})
+    (tiny_root / "BENCHMARK.json").write_text(json.dumps(s))
+    check_every_cell(tiny_root)
+    got = {m.name for m in cells.load("clr-ecoli-30x.tiny",
+                                      tiny_root).per_layer}
+    assert "align.passes_seen" in got
+    assert "align.passes_seen" not in {
+        m.name for m in cells.load("clr-ecoli-30x.d6k", tiny_root).per_layer}
+    # a list that names no cell of the file fails the layout
+    s["per_layer"][-1]["workloads"] = ["no-such-cell"]
+    (tiny_root / "BENCHMARK.json").write_text(json.dumps(s))
+    with pytest.raises(AssertionError):
+        check_every_cell(tiny_root)
 
 
 def test_unknown_cell_raises():

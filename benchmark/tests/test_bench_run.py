@@ -37,6 +37,12 @@ def test_sound_run_is_correct(tiny_root, name, trace):
     if trace:
         assert "xdrop.roofline_pct" not in r["metrics"]
         assert r["metrics"]["align.s_per_pass"]["value"] > 0
+        # the port's counters: the CPU launches no kernel and makes no
+        # card work to idle between
+        assert r["metrics"]["align.launches_per_pass"]["value"] == 0
+        assert r["metrics"]["align.syncs_per_pass"]["value"] >= 0
+        assert "align.extensions_per_launch" not in r["metrics"]
+        assert "align.idle_s_per_pass" not in r["metrics"]
     else:
         assert set(r["metrics"]) == {"corpus_bases_per_s", "setup_s"}
 

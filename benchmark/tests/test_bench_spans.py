@@ -2,7 +2,8 @@
 (benchmark/program_spans.py) on synthetic events: each span's share,
 each idle second given to its innermost span, the shares adding up to
 the window's idle time, and the range the card mirrors from a bella.*
-host span counted as no work, here and in tracing.summarise."""
+host span counted as no work, here and in tracing.summarise; and each
+span's host seconds in the window."""
 
 import pytest
 
@@ -50,7 +51,7 @@ def events():
 
 
 def test_idle_split_by_span_and_innermost():
-    got = program_spans.idle_split(events())
+    got = program_spans.idle_split(tracing.read(events()))
     # idle: [0, 30], [40, 50], [60, 62], [66, 95] ms
     assert got["idle_s"] == pytest.approx(0.071)
     want_in = {"bella.overlapDetection": 20, "bella.alignment": 36,
@@ -69,10 +70,10 @@ def test_idle_split_by_span_and_innermost():
 
 
 def test_mirrored_program_span_is_no_work_in_summarise():
-    s = tracing.summarise(events())
+    s = tracing.summarise(tracing.read(events()))
     assert s["busy_s"] == pytest.approx(0.029)
     assert s["window_s"] - s["busy_s"] == pytest.approx(
-        program_spans.idle_split(events())["idle_s"])
+        program_spans.idle_split(tracing.read(events()))["idle_s"])
     # only k1 lies inside the alignment driver's span
     assert s["align_kernel_s"] == pytest.approx(0.020)
     assert "bella.alignment" not in {n for n, _ in s["device_ops"]}
@@ -83,12 +84,30 @@ def test_nested_spans_that_start_together_give_idle_to_the_inner():
            Ev("bella.alignment", False, 0, 10 * MS),
            Ev("bella.align.batch", False, 0, 4 * MS),
            Ev("k", True, 4 * MS, 10 * MS)]
-    got = program_spans.idle_split(evs)
+    got = program_spans.idle_split(tracing.read(evs))
     assert got["idle_by_innermost"] == pytest.approx(
         {"bella.align.batch": 0.004})
     assert got["idle_in_span"]["bella.alignment"] == pytest.approx(0.004)
 
 
+def test_span_s_is_each_names_union_inside_the_window():
+    evs = events() + [
+        # nested in a span of its name: counted once
+        Ev("bella.align.batch", False, 30 * MS, 40 * MS),
+        # cut at the window's end
+        Ev("bella.outputting", False, 90 * MS, 110 * MS),
+        # outside the window
+        Ev("bella.fastqParsing", False, 120 * MS, 130 * MS)]
+    got = program_spans.span_s(tracing.read(evs))
+    want = {"bella.overlapDetection": 20, "bella.alignment": 60,
+            "bella.align.upload": 5, "bella.align.batch": 45,
+            "bella.align.collect": 5, "bella.decision": 10,
+            "bella.outputting": 10}
+    assert got == pytest.approx({n: v / 1e3 for n, v in want.items()})
+
+
 def test_a_trace_without_the_window_raises():
-    with pytest.raises(RuntimeError, match=tracing.WINDOW):
-        program_spans.idle_split([Ev("bella.alignment", False, 0, 1)])
+    evs = tracing.read([Ev("bella.alignment", False, 0, 1)])
+    for fn in (program_spans.idle_split, program_spans.span_s):
+        with pytest.raises(RuntimeError, match=tracing.WINDOW):
+            fn(evs)

@@ -5,12 +5,13 @@ from the benchmark's own files, and what the profiler's record gives.
 through which ``bella_tpu_torch.pipeline`` enters each layer in a
 ``torch.profiler.record_function`` span named after the layer (the port
 has no switch for it; the attributes are put back on exit).
-``summarise`` reads the profiler's events: the card's busy time over the
-window (the union of its kernels', copies' and sets' intervals, as
-scripts/torch_align_profile.py's ``device_busy`` takes it), the device
-time of the kernels inside the alignment spans, the device operations
-that took the most time, and the longest idle gaps, each named by the
-layer span it falls in.
+``read`` takes the profiler's kineto events once, as tuples, for
+``summarise`` here and for ``program_spans``. ``summarise`` gives the
+card's busy time over the window (the union of its kernels', copies' and
+sets' intervals, as scripts/torch_align_profile.py's ``device_busy``
+takes it), the device time of the kernels inside the alignment spans,
+the device operations that took the most time, and the longest idle
+gaps, each named by the layer span it falls in.
 """
 
 from __future__ import annotations
@@ -79,15 +80,26 @@ def _kind(e, on_card: bool) -> str:
     return "kernel"
 
 
-def _events(kineto_events):
+def read(kineto_events) -> list:
     """(name, on the card, activity type, start ns, end ns) of each event
     of the profiler's kineto record (read directly: building the
     profiler's event tree takes minutes for a window's events)."""
+    out = []
     for e in kineto_events:
         on_card = str(e.device_type()).endswith("CUDA")
         s = e.start_ns()
-        yield (e.name(), on_card, _kind(e, on_card), s,
-               s + e.duration_ns())
+        out.append((e.name(), on_card, _kind(e, on_card), s,
+                    s + e.duration_ns()))
+    return out
+
+
+def window(events) -> tuple:
+    """(start ns, end ns) of the host's WINDOW span in read events."""
+    win = [(s, t) for n, on_card, _, s, t in events
+           if n == WINDOW and not on_card]
+    if not win:
+        raise RuntimeError(f"the trace holds no {WINDOW!r} span")
+    return min(s for s, _ in win), max(t for _, t in win)
 
 
 def _union(iv):
@@ -101,21 +113,18 @@ def _union(iv):
     return out
 
 
-def summarise(kineto_events) -> dict:
-    """What the traced window's events give (times in seconds): window_s,
-    busy_s (None where the card recorded no work), align_kernel_s,
-    device_ops and idle_gaps (the TOP largest, [name, seconds])."""
-    evs = list(_events(kineto_events))
-    host = [e for e in evs if not e[1]]
-    win = [(e[3], e[4]) for e in host if e[0] == WINDOW]
-    if not win:
-        raise RuntimeError(f"the trace holds no {WINDOW!r} span")
-    w0, w1 = min(t[0] for t in win), max(t[1] for t in win)
+def summarise(events) -> dict:
+    """What the traced window's events (as ``read`` gives them) give
+    (times in seconds): window_s, busy_s (None where the card recorded no
+    work), align_kernel_s, device_ops and idle_gaps (the TOP largest,
+    [name, seconds])."""
+    w0, w1 = window(events)
+    host = [e for e in events if not e[1]]
     layers = sorted((e[3], e[4], e[0]) for e in host
                     if e[0] in SPANS and e[0] != WINDOW)
     # kernels, copies and sets on the card (not the mirrored ranges of
     # record_function, which last as long as the host's span)
-    work = [e for e in evs if e[1] and e[2] in DEVICE_WORK]
+    work = [e for e in events if e[1] and e[2] in DEVICE_WORK]
     busy_iv = _union(sorted((max(s, w0), min(t, w1))
                             for _, _, _, s, t in work
                             if min(t, w1) > max(s, w0)))
