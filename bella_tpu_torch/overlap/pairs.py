@@ -35,9 +35,12 @@ Beyond the single-pass budget, the memory ladder of the JAX package runs
 (``detection_rung``): the fused split-count path (passes over hash
 partitions of k-mer space, re-extracting read chunks once per group of
 passes), the hv-range staged chain, then host-staged reliable triples fed
-to ``generate_candidates``. The single pass, the split path and the staged
-chain give the same pairs; the triples rung and generate_candidates'
-unpacked branch seed by the unpacked rule. So the two gates that switch a
+to ``generate_candidates``. Within the single pass, candidate rows beyond
+the chain's share of the budget (k-mers of many copies: HiFi reads at
+depth) are chained one range of H reads at a time, as the staged chain
+does. The single pass, the split path and the staged chain give the same
+pairs; the triples rung and generate_candidates' unpacked branch seed by
+the unpacked rule. So the two gates that switch a
 short-read corpus to that rule (the staged chain's and generate_candidates'
 packed one) keep the JAX package's bytes, and the rest are set from peaks
 measured on the card. The TPU
@@ -47,6 +50,12 @@ windows (``_accum_append``) become lists of per-pass row blocks joined by
 ``_part_packable``) a stable sort by pass, and the 2-bit chunk uploads,
 size buckets, speculative size hints and compile-ahead calls have no
 counterpart.
+
+Each stage opens a span (``utils/log.span``) on every path that runs it:
+``bella.detect.extract``, ``bella.detect.count`` (the sort, count and
+compaction), ``bella.detect.emit`` (with an h-range chain's count of rows
+by read) and ``bella.detect.chain``; ``detect.rows`` counts
+the candidate rows emitted and ``detect.ranges`` the chains run.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ from bella_tpu_torch.seq.encode import (
     hopc_kmers, pack_kmers, uorder,
 )
 from bella_tpu_torch.utils import segments as seg
-from bella_tpu_torch.utils.log import log
+from bella_tpu_torch.utils.log import count, log, span
 
 # Device bytes of the memory ladder. The gates that change no output sit
 # above the peak torch.cuda.max_memory_allocated gave on an H100 (the
@@ -170,33 +179,35 @@ def _extract_kmers(codes, lengths, offsets, k: int, rid_base: int = 0,
     (canonical_from_window); HOPC and k > 28 take bella_tpu's
     per-position extractor (pack_kmers and canonical_kmers, or
     hopc_kmers)."""
-    dev = codes.device
-    n = codes.numel()
-    m = n - k + 1
-    if window_kmers(k, hopc):
-        c = codes.to(torch.int64)
-        raw = torch.zeros(m, dtype=torch.int64, device=dev)
-        for t in range(k):  # first base in the lowest 2-bit group
-            raw |= c[t:t + m] << (2 * t)
-        del c
-        canon, is_rc = canonical_from_window(raw, k)
-        del raw
-    elif hopc:
-        canon, _, is_rc = hopc_kmers(codes, k)
-    else:
-        canon, is_rc = canonical_kmers(pack_kmers(codes, k), k)
-    R = lengths.numel()
-    rid = torch.repeat_interleave(
-        torch.arange(R, device=dev, dtype=torch.int64), lengths, output_size=n
-    )[:m]
-    pos = torch.arange(m, device=dev, dtype=torch.int64) - offsets[rid]
-    valid = pos + k <= lengths[rid]
-    payload = ((rid + rid_base) << 32) | pos
-    if k == 32:
-        return (torch.where(valid, uorder(canon), SENTINEL),
-                is_rc & valid), payload
-    key = torch.where(valid, (canon << 1) | is_rc.to(torch.int64), SENTINEL)
-    return key, payload
+    with span("detect.extract"):
+        dev = codes.device
+        n = codes.numel()
+        m = n - k + 1
+        if window_kmers(k, hopc):
+            c = codes.to(torch.int64)
+            raw = torch.zeros(m, dtype=torch.int64, device=dev)
+            for t in range(k):  # first base in the lowest 2-bit group
+                raw |= c[t:t + m] << (2 * t)
+            del c
+            canon, is_rc = canonical_from_window(raw, k)
+            del raw
+        elif hopc:
+            canon, _, is_rc = hopc_kmers(codes, k)
+        else:
+            canon, is_rc = canonical_kmers(pack_kmers(codes, k), k)
+        R = lengths.numel()
+        rid = torch.repeat_interleave(
+            torch.arange(R, device=dev, dtype=torch.int64), lengths,
+            output_size=n)[:m]
+        pos = torch.arange(m, device=dev, dtype=torch.int64) - offsets[rid]
+        valid = pos + k <= lengths[rid]
+        payload = ((rid + rid_base) << 32) | pos
+        if k == 32:
+            return (torch.where(valid, uorder(canon), SENTINEL),
+                    is_rc & valid), payload
+        key = torch.where(valid, (canon << 1) | is_rc.to(torch.int64),
+                          SENTINEL)
+        return key, payload
 
 
 def _sort_stream(key, payload):
@@ -225,16 +236,17 @@ def _count_sorted(key, payload, lower: int, upper: int):
     strand bits, within-k-mer ranks, counts, the reliable mask, nnzs
     (nnzs[d] = reliable rows of k-mers with count > d, d < upper) and the
     number of reliable k-mers."""
-    payload, skmer, sc, sentinel = _sort_stream(key, payload)
-    kb = seg.boundaries(skmer)
-    del skmer
-    ones = torch.ones_like(sc)
-    cnt = seg.seg_sum_bcast(ones, kb)
-    rank = seg.seg_cumsum(ones, kb) - 1
-    reliable = (cnt >= lower) & (cnt <= upper) & ~sentinel
-    nnzs = _lag_sizes(cnt[reliable], upper)
-    num_kmers = int((kb & reliable).sum())
-    return payload, sc, rank, cnt, reliable, nnzs, num_kmers
+    with span("detect.count"):
+        payload, skmer, sc, sentinel = _sort_stream(key, payload)
+        kb = seg.boundaries(skmer)
+        del skmer
+        ones = torch.ones_like(sc)
+        cnt = seg.seg_sum_bcast(ones, kb)
+        rank = seg.seg_cumsum(ones, kb) - 1
+        reliable = (cnt >= lower) & (cnt <= upper) & ~sentinel
+        nnzs = _lag_sizes(cnt[reliable], upper)
+        num_kmers = int((kb & reliable).sum())
+        return payload, sc, rank, cnt, reliable, nnzs, num_kmers
 
 
 def _lag_sizes(cnt, upper: int) -> np.ndarray:
@@ -252,12 +264,13 @@ def _compact(payload, sc, rank, cnt, reliable):
     whole k-mers stay contiguous and in order, and the rows usable at lag
     d (count > d) form a prefix. Returns (read, position, strand, rank),
     int32 but the strand."""
-    rows = torch.nonzero(reliable).squeeze(1)
-    rows = rows[torch.sort(-cnt[rows], stable=True)[1]]
-    p = payload[rows]
-    i32 = torch.int32
-    return ((p >> 32).to(i32), (p & 0xFFFFFFFF).to(i32), sc[rows],
-            rank[rows].to(i32))
+    with span("detect.count"):
+        rows = torch.nonzero(reliable).squeeze(1)
+        rows = rows[torch.sort(-cnt[rows], stable=True)[1]]
+        p = payload[rows]
+        i32 = torch.int32
+        return ((p >> 32).to(i32), (p & 0xFFFFFFFF).to(i32), sc[rows],
+                rank[rows].to(i32))
 
 
 def _rank_from_ids(kmer_ids):
@@ -283,6 +296,14 @@ def _lags(sr, rank, nnzs):
         yield d, size, (rank[d:size] >= d) & (sr[d:size] != sr[:size - d])
 
 
+def candidate_rows(nnzs) -> int:
+    """The candidate rows that every lag emits, from nnzs alone, with the
+    pairs of two rows in one read that _emit drops: a k-mer of c rows
+    gives C(c, 2), and nnzs[1:] counts each of its rows c - 1 times, so
+    the rows are half of its sum."""
+    return int(np.sum(nnzs[1:])) // 2
+
+
 def _emit(sr, sp, sc, rank, nnzs, lens, k: int, bin_size: int,
           h_range=None):
     """Candidate rows of every lag, live rows only, as a tuple of int32
@@ -290,33 +311,38 @@ def _emit(sr, sp, sc, rank, nnzs, lens, k: int, bin_size: int,
     _fused_emit_packed, _fused_emit_wide, _fused_emit and _emit_slices +
     _multiop). h_range = (lo, hi) keeps only pairs with lo <= h < hi (the
     chain by h-ranges). The overlap estimate is at least k, so its bin
-    needs no clamp."""
-    hs, vs, bins, phs, pvs, fls = [], [], [], [], [], []
-    for d, size, ok in _lags(sr, rank, nnzs):
-        ra, rb = sr[d:size], sr[:size - d]
-        h = torch.maximum(ra, rb)
-        if h_range is not None:
-            ok &= (h >= h_range[0]) & (h < h_range[1])
-        ra, rb, h = ra[ok], rb[ok], h[ok]
-        pa, pb = sp[d:size][ok], sp[:size - d][ok]
-        flip = sc[d:size][ok] != sc[:size - d][ok]
-        h_is_a = ra > rb
-        v = torch.minimum(ra, rb)
-        pos_h = torch.where(h_is_a, pa, pb)
-        pos_v = torch.where(h_is_a, pb, pa)
-        len_h, len_v = lens[h], lens[v]
-        beg_h = torch.where(flip, len_h - pos_h - k, pos_h)
-        ov = (torch.minimum(beg_h, pos_v)
-              + torch.minimum(len_h - (beg_h + k), len_v - (pos_v + k)) + k)
-        for out, a in ((hs, h), (vs, v), (bins, ov // bin_size),
-                       (phs, pos_h), (pvs, pos_v)):
-            out.append(a.to(torch.int32))
-        fls.append(flip)
-    if not hs:
-        z = torch.zeros(0, dtype=torch.int32, device=sr.device)
-        return z, z, z, z, z, torch.zeros(0, dtype=torch.bool,
-                                          device=sr.device)
-    return tuple(torch.cat(x) for x in (hs, vs, bins, phs, pvs, fls))
+    needs no clamp. Counts the rows it returns as detect.rows."""
+    with span("detect.emit"):
+        hs, vs, bins, phs, pvs, fls = [], [], [], [], [], []
+        for d, size, ok in _lags(sr, rank, nnzs):
+            ra, rb = sr[d:size], sr[:size - d]
+            h = torch.maximum(ra, rb)
+            if h_range is not None:
+                ok &= (h >= h_range[0]) & (h < h_range[1])
+            ra, rb, h = ra[ok], rb[ok], h[ok]
+            pa, pb = sp[d:size][ok], sp[:size - d][ok]
+            flip = sc[d:size][ok] != sc[:size - d][ok]
+            h_is_a = ra > rb
+            v = torch.minimum(ra, rb)
+            pos_h = torch.where(h_is_a, pa, pb)
+            pos_v = torch.where(h_is_a, pb, pa)
+            len_h, len_v = lens[h], lens[v]
+            beg_h = torch.where(flip, len_h - pos_h - k, pos_h)
+            ov = (torch.minimum(beg_h, pos_v)
+                  + torch.minimum(len_h - (beg_h + k), len_v - (pos_v + k))
+                  + k)
+            for out, a in ((hs, h), (vs, v), (bins, ov // bin_size),
+                           (phs, pos_h), (pvs, pos_v)):
+                out.append(a.to(torch.int32))
+            fls.append(flip)
+        if hs:
+            rows = tuple(torch.cat(x) for x in (hs, vs, bins, phs, pvs, fls))
+        else:
+            z = torch.zeros(0, dtype=torch.int32, device=sr.device)
+            rows = (z, z, z, z, z,
+                    torch.zeros(0, dtype=torch.bool, device=sr.device))
+    count("detect.rows", rows[0].numel())
+    return rows
 
 
 def _emit_ordered(kmer_ids, read_ids, positions, is_rc, upper: int):
@@ -332,6 +358,8 @@ def _emit_ordered(kmer_ids, read_ids, positions, is_rc, upper: int):
 
 
 def _cat_rows(parts):
+    if len(parts) == 1:  # one part needs no copy
+        return tuple(parts[0])
     return tuple(torch.cat([p[i] for p in parts]) for i in range(6))
 
 
@@ -370,23 +398,27 @@ def _chain(rows, k: int, unpacked: bool):
     bin counts distinct pos_h // (k+1) buckets, count is the pair's rows;
     the bin with the highest support (then the lowest bin) wins and its
     first row is the seed. Returns the seed rows' (h, v, count, support,
-    pos_h, pos_v, flip), sorted by (h, v)."""
-    h, v, bin_, pos_h, pos_v, flip = rows
-    key = [h, v, bin_, pos_h] + ([] if unpacked else [flip]) + [pos_v]
-    perm = _lex_order(key)
-    h, v, bin_, pos_h, pos_v, flip = (a[perm] for a in rows)
-    pair_b = seg.boundaries((h.to(torch.int64) << 31) | v)
-    bin_b = pair_b | seg.boundaries(bin_)
-    bucket = pos_h // (k + 1)
-    prev_bucket = torch.cat([bucket[:1], bucket[:-1]])
-    kept = bin_b | (bucket != prev_bucket)
-    support = seg.seg_sum_bcast(kept, bin_b)
-    count = seg.seg_sum_bcast(torch.ones_like(pos_h), pair_b)
-    binidx = seg.seg_cumsum(bin_b, pair_b)  # 1-based bin rank in the pair
-    score = (support << 32) - binidx
-    best = seg.seg_max_bcast(score, pair_b)
-    s = torch.nonzero((score == best) & bin_b).squeeze(1)
-    return h[s], v[s], count[s], support[s], pos_h[s], pos_v[s], flip[s]
+    pos_h, pos_v, flip), sorted by (h, v). Counts one chain as
+    detect.ranges."""
+    count("detect.ranges")
+    with span("detect.chain"):
+        h, v, bin_, pos_h, pos_v, flip = rows
+        key = [h, v, bin_, pos_h] + ([] if unpacked else [flip]) + [pos_v]
+        perm = _lex_order(key)
+        h, v, bin_, pos_h, pos_v, flip = (a[perm] for a in rows)
+        pair_b = seg.boundaries((h.to(torch.int64) << 31) | v)
+        bin_b = pair_b | seg.boundaries(bin_)
+        bucket = pos_h // (k + 1)
+        prev_bucket = torch.cat([bucket[:1], bucket[:-1]])
+        kept = bin_b | (bucket != prev_bucket)
+        support = seg.seg_sum_bcast(kept, bin_b)
+        rows_in_pair = seg.seg_sum_bcast(torch.ones_like(pos_h), pair_b)
+        binidx = seg.seg_cumsum(bin_b, pair_b)  # 1-based bin rank in a pair
+        score = (support << 32) - binidx
+        best = seg.seg_max_bcast(score, pair_b)
+        s = torch.nonzero((score == best) & bin_b).squeeze(1)
+        return (h[s], v[s], rows_in_pair[s], support[s], pos_h[s], pos_v[s],
+                flip[s])
 
 
 def _unpack_pairs(h, v, count, support, pos_h, pos_v, flip, lengths_np,
@@ -431,43 +463,59 @@ def _on(comp, dev):
                  else a for a in comp)
 
 
+def _rows_by_h(parts, R: int, dev) -> np.ndarray:
+    """The cumulative sum over reads of each read's candidate rows as h:
+    one sweep of every part's lags."""
+    with span("detect.emit"):
+        per_h = torch.zeros(R, dtype=torch.int64, device=dev)
+        for comp, nnzs in parts:
+            sr, rank = _on((comp[0], comp[3]), dev)
+            for d, size, ok in _lags(sr, rank, nnzs):
+                h = torch.maximum(sr[d:size], sr[:size - d])[ok]
+                per_h += torch.bincount(h, minlength=R)
+        return per_h.cumsum(0).cpu().numpy()
+
+
 def _chain_by_h_ranges(parts, lengths_dev, lengths_np, k: int,
                        bin_size: int, unpacked: bool, chain_bytes: float):
     """Emit and chain the candidate rows of `parts` ((compacted rows,
     nnzs) each, on the device or the host) one read range of h at a time
     (the reference's column-block staging role, include/overlap.hpp:
-    682-710). A first pass counts each read's rows as h, so a range holds
-    at most chain_bytes / CAND_BYTES rows (or one read's). A pair's rows
-    share h, so ranges partition pairs, and chaining is per pair: the
-    result is one chain's."""
+    682-710). Where the rows that the counts give (candidate_rows) fit
+    chain_bytes, one chain takes them all; else a first pass counts each
+    read's rows as h, so a range holds at most chain_bytes / CAND_BYTES
+    rows (or one read's). A pair's rows share h, so ranges partition
+    pairs, and chaining is per pair: the result is one chain's. `parts`
+    is emptied once the last range is emitted, so a caller that holds no
+    other reference frees its compacted rows before the last chain."""
     dev = lengths_dev.device
     R = len(lengths_np)
-    per_h = torch.zeros(R, dtype=torch.int64, device=dev)
-    for comp, nnzs in parts:
-        sr, rank = _on((comp[0], comp[3]), dev)
-        for d, size, ok in _lags(sr, rank, nnzs):
-            h = torch.maximum(sr[d:size], sr[:size - d])[ok]
-            per_h += torch.bincount(h, minlength=R)
-    cum = per_h.cumsum(0).cpu().numpy()
-    cap = max(int(chain_bytes // CAND_BYTES), 1)
-    bounds = [0]
-    while bounds[-1] < R:
-        lo = bounds[-1]
-        base = int(cum[lo - 1]) if lo else 0
-        hi = int(np.searchsorted(cum, base + cap, side="right"))
-        bounds.append(max(hi, lo + 1))
-    log("chainRanges", f"{len(bounds) - 1} h-ranges x {len(parts)} passes "
-        f"({int(cum[-1])} rows, at most {cap} a range)")
+    if sum(candidate_rows(nnzs) for _, nnzs in parts) * CAND_BYTES \
+            <= chain_bytes:
+        bounds, cum = [0, R], None
+    else:
+        cum = _rows_by_h(parts, R, dev)
+        cap = max(int(chain_bytes // CAND_BYTES), 1)
+        bounds = [0]
+        while bounds[-1] < R:
+            lo = bounds[-1]
+            base = int(cum[lo - 1]) if lo else 0
+            hi = int(np.searchsorted(cum, base + cap, side="right"))
+            bounds.append(max(hi, lo + 1))
+        log("chainRanges", f"{len(bounds) - 1} h-ranges x {len(parts)} "
+            f"passes ({int(cum[-1])} rows, at most {cap} a range)")
     out = []
     for lo, hi in zip(bounds, bounds[1:]):
-        if cum[hi - 1] == (cum[lo - 1] if lo else 0):
+        if cum is not None and cum[hi - 1] == (cum[lo - 1] if lo else 0):
             continue
         h_range = None if hi - lo == R else (lo, hi)
         rows = _cat_rows([_emit(*_on(comp, dev), nnzs, lengths_dev, k,
                                 bin_size, h_range) for comp, nnzs in parts])
+        if hi == R:
+            parts.clear()
         out.append(_chain_pairs(rows, lengths_np, k, unpacked))
         del rows
-    return CandidatePairs.concatenate(out)
+    return out[0] if len(out) == 1 else CandidatePairs.concatenate(out)
 
 
 # ----------------------------------------------------------------------
@@ -480,7 +528,10 @@ def detect_overlaps(reads, config, device="cuda"):
     (CandidatePairs sorted by (read_h, read_v), num_kmers, nnz): the
     result of bella_tpu.overlap.pairs.detect_overlaps. The branch is
     detection_rung's. As there, minimizer and syncmer selection is
-    run_pipeline's modular branch and is not applied here."""
+    run_pipeline's modular branch and is not applied here. The single
+    pass chains its rows through _chain_by_h_ranges: in one chain where
+    the rows that counting gives (candidate_rows) fit the chain's share of
+    the budget, else one range of h at a time, with the same pairs."""
     from bella_tpu_torch.config import resolve_device
 
     dev = resolve_device(device)
@@ -512,12 +563,11 @@ def detect_overlaps(reads, config, device="cuda"):
     nnz = int(nnzs[0])
     if nnz == 0:
         return CandidatePairs.empty(), num_kmers, 0
-    comp = _compact(payload, sc, rank, cnt, reliable)
+    parts = [(_compact(payload, sc, rank, cnt, reliable), nnzs)]
     del payload, sc, rank, cnt, reliable
-    rows = _emit(*comp, nnzs, lengths, k, config.bin_size)
-    del comp
-    return (_chain_pairs(rows, reads.lengths, k, rung == "unpacked"),
-            num_kmers, nnz)
+    return (_chain_by_h_ranges(parts, lengths, reads.lengths, k,
+                               config.bin_size, rung == "unpacked",
+                               budget * CHAIN_SHARE), num_kmers, nnz)
 
 
 def _chunk_bounds(reads, cb: int):

@@ -12,7 +12,8 @@ and the port's one set of spans and counters.
 * ``count(name, n)`` adds to ``COUNTS``: kernel launches by kernel
   (``launch.<kernel>``), the aligner's blocking host reads of card
   tensors (``sync.align``), the cascade's pairs (``cascade.extended``,
-  ``cascade.settled``). Shards on distinct cards count from their own
+  ``cascade.settled``), detection's candidate rows and chains
+  (``detect.rows``, ``detect.ranges``). Shards on distinct cards count from their own
   threads at once, so the store takes a lock.
 * ``reset()`` clears both stores.
 """
