@@ -1,7 +1,8 @@
-// Banded gapped x-drop extension on Hopper (sm_90a): a warp per extension
-// (a few warps at W > 512), the band in registers, a persistent grid that
-// takes extensions longest first, each extension's bases read straight
-// from a flat word stream through its descriptor.
+// Banded gapped x-drop extension on Hopper (sm_90a): several extensions
+// a warp at W <= 256 in the static mode (the grouped tile), a warp per
+// extension otherwise (a few warps at W > 512), the band in registers, a
+// persistent grid that takes extensions longest first, each extension's
+// bases read straight from a flat word stream through its descriptor.
 //
 // Replaces the Pallas TPU kernel bella_tpu/align/pallas_xdrop.py:_kernel
 // (entries extend_batch_pallas_packed and extend_batch_pallas) in the
@@ -13,24 +14,38 @@
 // a whole cascade level is one launch.
 //
 // What bounds it on the H100: neither bytes nor operations, but the
-// chain of steps. Each extension is a chain of dependent antidiagonals (up
-// to t_len + q_len of them), each ending in a max reduction over the band,
-// and a launch lasts about as long as its longest extension's chain: one
-// step's latency (about 0.2 us at W = 128 on an H100, for an extension
-// alone on its SM; chip_smoke.py prints it) times its step count,
-// stretched while other warps share the scheduler's issue slots. A launch
-// that holds a whole level takes every long chain of the level first and
-// ends on its short ones, so the card idles only in the level's one tail.
-// The reads' words (34 MB for a 137-Mbp corpus) stay in the 50 MB L2 and
-// are read once per 16 steps of a thread's window. The design shortens
-// the step and keeps the card's few long chains moving:
-//   * a group of G = ceil(W / (32 * LPT)) warps runs one extension; each
-//     thread holds LPT (4, 8 or 16) consecutive band lanes p = LPT * t + q
-//     of antidiagonals d - 2 and d - 1 in registers, and writes d over
-//     d - 2 in place (in the lane order that reads each predecessor before
-//     it is overwritten). W = 128 / 256 / 512 take one warp (4 / 8 / 16
-//     lanes a thread), 1024 and 2048 two and four. Lanes >= W hold NINF,
-//     never win the max and read as out of band;
+// issue slots of the schedulers. Each extension is a chain of dependent
+// antidiagonals (up to t_len + q_len of them), each ending in a max
+// reduction over the band. A launch holds a whole cascade level (up to
+// millions of extensions, taken longest first), so every resident warp
+// runs a thousand or more extensions in turn, and the launch ends when
+// the schedulers have issued every extension's steps: its time is the
+// steps over the rate at which they are issued, not its longest chain.
+// Most of a step's instructions do not grow with the lanes a thread
+// holds (the key's tree, the reduction, the edge shuffles, the base
+// rings, the bounds, the bookkeeping), so the design pays them for as
+// many cells as the registers allow. The reads' words (34 MB for a
+// 137-Mbp corpus) stay in the 50 MB L2 and are read once per 16 steps of
+// a thread's window:
+//   * the grouped tile (the static mode's int32-key launches at W <= 256,
+//     xdrop_grouped_kernel): each thread holds 16 consecutive band lanes,
+//     an extension takes a group of W / 16 threads rounded up to a power
+//     of two (at least 4; 8 at W = 128, 16 at W = 256), and a warp runs
+//     32 / that many extensions side by side, in lockstep. The group's max
+//     key comes by a butterfly of __shfl_xor_sync inside the group, its
+//     edge lanes by shuffles of the group's width. A group takes its next
+//     extension at the end of a two-antidiagonal turn, so every group of
+//     a warp holds the same parity of d, and the static mode's predecessor
+//     shifts (which hang on d alone once d > W) agree across the warp: it
+//     diverges only while a group is in its first W antidiagonals;
+//   * otherwise a group of G = ceil(W / (32 * LPT)) warps runs one
+//     extension; each thread holds LPT (4, 8 or 16) consecutive band lanes
+//     p = LPT * t + q of antidiagonals d - 2 and d - 1 in registers, and
+//     writes d over d - 2 in place (in the lane order that reads each
+//     predecessor before it is overwritten). The adaptive mode takes one
+//     warp at W = 128 / 256 / 512 (4 / 8 / 16 lanes a thread), the static
+//     mode at W = 512; 1024 and 2048 take two and four. Lanes >= W hold
+//     NINF, never win the max and read as out of band (both tiles);
 //   * the predecessor shifts lo(d) - lo(d-1) and lo(d-1) - lo(d-2) are
 //     uniform across the group and each 0 or 1, so each step branches,
 //     without divergence, to one of four cell loops whose predecessors are
@@ -51,7 +66,8 @@
 //     stream's length read 0. A materialised row is the descriptor of
 //     address 16 * row * stride, direction +1, no complement;
 //   * the antidiagonal's max and its lowest lane come from one
-//     __reduce_max_sync (REDUX) of an int32 key, w * span + (span - 1 - p);
+//     __reduce_max_sync (REDUX; the grouped tile: the butterfly) of an
+//     int32 key, w * span + (span - 1 - p);
 //     while it runs, the next antidiagonal's bases and the new row's
 //     neighbouring lanes are prepared. With G > 1 warps, the warps' keys
 //     and edge lanes go through shared memory behind one named barrier per
@@ -61,10 +77,11 @@
 //     (LONGKEY): a REDUX max of w, then a REDUX min of the lane among the
 //     lanes that hold it, which is exact while w = value + d fits int32
 //     (lengths below 2^29);
-//   * a persistent grid of two blocks per SM takes extensions from a
-//     global counter over an order sorted by t_len + q_len, longest first,
-//     so the long chains start first and share their schedulers with few
-//     warps. Results go to the extension's own index.
+//   * a persistent grid of two blocks per SM (three in the grouped tile)
+//     takes extensions from a global counter over an order sorted by
+//     t_len + q_len, longest first, so the long chains start first and
+//     the launch ends on short ones. Results go to the extension's own
+//     index.
 // The Pallas kernel's feed buffers, rolls and ramp / generic / steady
 // step specialisations exist for the TPU's single scalar unit and are not
 // carried over.
@@ -104,11 +121,12 @@ constexpr int kNinf = -(1 << 20);
 // below 2^17, and the long-key instantiation for the others.
 constexpr int kKeyFloor = -(1 << 18);
 constexpr int kBlockThreads = 256;
-// Blocks the persistent grid keeps on each SM (fewer if the occupancy is
-// lower): 16 warps, 4 a scheduler. More warps share each scheduler's issue
-// slots with a launch's longest extension, whose chain of steps sets the
-// launch's end; fewer leave the issue slots idle. Measured on the demo
-// corpus at 1, 2, 3 and the occupancy limit, 2 was fastest at every band.
+// Blocks the persistent grid of the one-warp tiles keeps on each SM
+// (fewer if the occupancy is lower): 16 warps, 4 a scheduler. Measured on
+// the demo corpus at 1, 2, 3 and the occupancy limit when a launch held
+// some 8,192 extensions and ended on its longest chain: 2 was fastest at
+// every band. Not measured again since a cascade level became one launch
+// (the grouped tile's own count is kGroupedBlocksPerSm).
 constexpr int kBlocksPerSm = 2;
 constexpr int kBlockWarps = kBlockThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -522,6 +540,215 @@ xdrop_kernel(const uint32_t* __restrict__ TW, long long t_words,
   }
 }
 
+// The grouped tile: the static mode's int32-key launches at W <=
+// kGroupedMaxW. A thread holds kGroupedLpt band lanes, an extension takes
+// a group of GS threads (W / 16 rounded up to a power of two, at least
+// 4), and a warp runs 32 / GS extensions side by side.
+constexpr int kGroupedMaxW = 256;
+constexpr int kGroupedLpt = 16;
+// Blocks the grouped kernel keeps on each SM, and asks ptxas to fit
+// (fewer if the occupancy is lower). Measured on an H100 on d6k's first
+// level (2.87 M extensions at W = 128) and its W = 256 level, medians
+// in ms: 1 block 1,145 / 780; 2 (89 registers, the occupancy limit
+// without the bound) 846 / 558; 3 (80 registers, no spills) 800 / 522;
+// 4 (64 registers, 216 bytes spilled) 898 / 591.
+constexpr int kGroupedBlocksPerSm = 3;
+
+// Walk x of a new extension of lengths tl and ql on the streams of
+// descriptors ta and qa, rows d = 0 (ra) and d = 1 (rb) of the thread's
+// lanes p0 ..; lengths 0 give a walk that is dead from the start and
+// loads nothing. In the grouped tile x.step is -1 while the walk lives
+// and its count of antidiagonals once it has ended (x.alive is unused).
+template <int LPT>
+__device__ __forceinline__ void begin(Walk& x, int (&ra)[LPT],
+                                      int (&rb)[LPT], int tl, int ql,
+                                      long long ta, long long qa, int p0,
+                                      int max_steps, const uint32_t* TW,
+                                      long long t_words, const uint32_t* QW,
+                                      long long q_words) {
+  x.tl = tl;
+  x.ql = ql;
+  x.ts = stream_of(ta, tl);
+  x.qs = stream_of(qa, ql);
+  x.lo_m2 = x.lo_m1 = x.lo = 0;
+  x.d = 2;
+  x.step = tl + ql > 0 && max_steps > 0 ? -1 : 0;
+  x.best = x.best_t = x.best_q = 0;
+  x.tw = (p0 - 1) >> 4;  // windows of d = 2
+  x.qw = (1 - p0 - LPT) >> 4;
+  x.t0 = word_at(x.ts, TW, t_words, x.tw);
+  x.t1 = word_at(x.ts, TW, t_words, x.tw + 1);
+  x.t2 = word_at(x.ts, TW, t_words, x.tw + 2);
+  x.q0 = word_at(x.qs, QW, q_words, x.qw);
+  x.q1 = word_at(x.qs, QW, q_words, x.qw + 1);
+  x.q2 = word_at(x.qs, QW, q_words, x.qw + 2);
+  uint32_t a0, a1;
+  bases<LPT, false>(x, TW, t_words, QW, q_words, 0, 2, p0, 0, &a0,
+                    &a1);  // lo(2) = 0
+  x.add = a0;
+  // rows d = 0 and 1 in w = value + d: only lanes 0 and 1 hold values,
+  // so every thread's neighbouring lanes are NINF
+  x.l1 = x.r1 = kNinf;
+  x.l2 = x.r2 = kNinf + 1;
+#pragma unroll
+  for (int q = 0; q < LPT; ++q) {
+    const int p = p0 + q;
+    ra[q] = p == 0 ? 0 : kNinf;
+    int v = kNinf + 1;
+    if (p == 0 && ql >= 1) v = 0;
+    if (p == 1 && tl >= 1) v = 0;
+    rb[q] = v;
+  }
+}
+
+// Antidiagonal d of walk x in the grouped tile (t: the thread's place in
+// its group), as advance does it with one warp. The group's max key
+// comes by a butterfly of shuffles inside the group, its edge lanes by
+// shuffles of width GS. Every thread of the warp runs every step; a walk
+// that has ended moves on without recording, so the warp's shuffles never
+// wait on a group that has left.
+template <int GS>
+__device__ __forceinline__ void advance_grouped(
+    Walk& x, int (&row)[kGroupedLpt], const int (&prv)[kGroupedLpt], int t,
+    int p0, int W, int xdrop, int max_steps, const uint32_t* TW,
+    long long t_words, const uint32_t* QW, long long q_words) {
+  constexpr int LPT = kGroupedLpt;
+  constexpr int kSpan = LPT * GS;
+  constexpr int kLog = log2_of(kSpan);
+  const int d = x.d;
+  const int lo = x.lo;
+  const int dlt0 = x.lo_m1 - x.lo_m2;
+  const int dlt1 = lo - x.lo_m1;
+  if (dlt1 == 0) {
+    if (dlt0 == 0)
+      cells<LPT, -1, 0>(row, prv, x.l1, x.l2, x.add);
+    else
+      cells<LPT, 0, 0>(row, prv, 0, x.l2, x.add);
+  } else {
+    if (dlt0 == 0)
+      cells<LPT, 0, 1>(row, prv, 0, x.r2, x.add);
+    else
+      cells<LPT, 1, 1>(row, prv, x.r1, x.r2, x.add);
+  }
+
+  const int nd = kNinf + d;
+  const int plo = d - lo - x.ql;
+  const int phi = min(W - 1, min(x.tl, d) - lo);
+  const bool whole = plo <= 0 && phi >= kSpan - 1;
+  int key = whole ? finish<false, LPT, kSpan, false>(row, nd, d, p0, 0, 0)
+                  : finish<false, LPT, kSpan, true>(row, nd, d, p0,
+                                                    max(0, plo) - p0,
+                                                    phi - p0);
+#pragma unroll
+  for (int m = GS / 2; m > 0; m >>= 1)
+    key = max(key, __shfl_xor_sync(kFull, key, m));
+
+  int ln = __shfl_up_sync(kFull, row[LPT - 1], 1, GS);
+  int rn = __shfl_down_sync(kFull, row[0], 1, GS);
+  if (t == 0) ln = nd;
+  if (t == GS - 1) rn = nd;
+  const int lo_next = lo_static(d + 1, W);
+  uint32_t a0, a1;
+  bases<LPT, false>(x, TW, t_words, QW, q_words, lo, d + 1, p0,
+                    lo_next - lo, &a0, &a1);
+
+  if (x.step < 0) {  // antidiagonal d is the walk's (d - 1)-th
+    const int cur = (key >> kLog) - d;
+    if (cur > x.best) {
+      x.best = cur;
+      x.best_t = lo + kSpan - 1 - (key & (kSpan - 1));
+      x.best_q = d - x.best_t;
+    }
+    if (!(cur >= x.best - xdrop && d < x.tl + x.ql && d - 1 < max_steps))
+      x.step = d - 1;
+  }
+  x.lo_m2 = x.lo_m1;
+  x.lo_m1 = lo;
+  x.lo = lo_next;
+  x.add = a0;
+  x.l1 = x.l2;
+  x.r1 = x.r2;
+  x.l2 = ln;
+  x.r2 = rn;
+  ++x.d;
+}
+
+// The grouped kernel: the persistent grid of xdrop_kernel, each warp's
+// 32 / GS groups walking their extensions in lockstep, two antidiagonals
+// a turn. A group whose extension ended (died, or reached max_steps or
+// t_len + q_len) writes its result at the turn's end and takes the next
+// extension there, starting it at d = 2 on the turn's first half: so
+// every group of a warp holds an even d on the first half and an odd one
+// on the second, the predecessor shifts of the static mode (which hang on
+// d alone past the first W antidiagonals) agree across the warp, and the
+// rows keep their registers' roles. The groups that take an extension at
+// a turn's end share one atomicAdd on the counter. The warp leaves when
+// the counter is past B for each of its groups.
+template <int GS>
+__global__ void __launch_bounds__(kBlockThreads, kGroupedBlocksPerSm)
+xdrop_grouped_kernel(const uint32_t* __restrict__ TW, long long t_words,
+                     const long long* __restrict__ t_at,
+                     const uint32_t* __restrict__ QW, long long q_words,
+                     const long long* __restrict__ q_at,
+                     const int* __restrict__ t_len,
+                     const int* __restrict__ q_len,
+                     const int* __restrict__ order, int* __restrict__ next,
+                     int B, int W, int xdrop, int max_steps,
+                     int* __restrict__ score_out, int* __restrict__ te_out,
+                     int* __restrict__ qe_out, int* __restrict__ steps_out) {
+  constexpr int LPT = kGroupedLpt;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & (GS - 1);  // thread within its group
+  const int p0 = LPT * t;         // this thread's first band lane
+
+  Walk x;
+  int ra[LPT], rb[LPT];
+  begin<LPT>(x, ra, rb, 0, 0, 0, 0, p0, max_steps, TW, t_words, QW,
+             q_words);    // no extension yet: dead, so the group takes one
+  // the group's extension: -1 before the first, -2 once the counter has
+  // passed B for the group
+  int e = -1;
+  for (;;) {
+    const bool done = x.step >= 0 && e != -2;
+    const unsigned leads = __ballot_sync(kFull, done && t == 0);
+    if (leads) {
+      // one atomicAdd for every group that takes an extension now
+      const int first = __ffs(leads) - 1;
+      int k = 0;
+      if (lane == first) k = atomicAdd(next, __popc(leads));
+      k = __shfl_sync(kFull, k, first) +
+          __popc(leads & ((1u << lane) - 1u));
+      k = __shfl_sync(kFull, k, 0, GS);
+      if (done) {
+        if (e >= 0 && t == 0) {
+          score_out[e] = x.best;
+          te_out[e] = x.best_t;
+          qe_out[e] = x.best_q;
+          if (steps_out) steps_out[e] = x.step;
+        }
+        int tl = 0, ql = 0;
+        long long ta = 0, qa = 0;
+        if (k < B) {
+          e = order[k];
+          tl = t_len[e];
+          ql = q_len[e];
+          ta = t_at[e];
+          qa = q_at[e];
+        } else {
+          e = -2;
+        }
+        begin<LPT>(x, ra, rb, tl, ql, ta, qa, p0, max_steps, TW, t_words,
+                   QW, q_words);
+      }
+      if (__all_sync(kFull, e == -2)) break;
+    }
+    advance_grouped<GS>(x, ra, rb, t, p0, W, xdrop, max_steps, TW, t_words,
+                        QW, q_words);
+    advance_grouped<GS>(x, rb, ra, t, p0, W, xdrop, max_steps, TW, t_words,
+                        QW, q_words);
+  }
+}
+
 struct Args {
   const uint32_t* TW;
   long long t_words;
@@ -535,37 +762,58 @@ struct Args {
   int *score, *t_end, *q_end, *steps;
 };
 
-// Extensions the persistent grid runs at once: blocks resident on the
-// card times extension groups per block.
-template <bool A, int LPT, int G, bool LK>
-int slots_t(int* blocks) {
+// The kernels of the persistent grid (xdrop_kernel and
+// xdrop_grouped_kernel share their parameters).
+using Kernel = void (*)(const uint32_t*, long long, const long long*,
+                        const uint32_t*, long long, const long long*,
+                        const int*, const int*, const int*, int*, int, int,
+                        int, int, int*, int*, int*, int*);
+
+// Extensions a persistent grid of `kernel` runs at once: blocks resident
+// on the card (at most per_sm_max an SM) times `groups` extension groups
+// a block; -1 when a query fails.
+int slots_of(Kernel kernel, int groups, int per_sm_max, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess)
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, xdrop_kernel<A, LPT, G, LK>, kBlockThreads, 0);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kBlockThreads, 0);
   if (rc != cudaSuccess || per_sm <= 0) return -1;
-  *blocks = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
-  return *blocks * (kBlockWarps / G);
+  *blocks = sms * (per_sm < per_sm_max ? per_sm : per_sm_max);
+  return *blocks * groups;
 }
 
-template <bool A, int LPT, int G, bool LK>
-int launch_t(const Args& a, cudaStream_t s) {
+// slots_of into *slots where slots is given, else the launch of the grid
+// on stream s (no more blocks than a.B needs).
+int run_grid(Kernel kernel, int groups, int per_sm_max, const Args& a,
+             cudaStream_t s, int* slots) {
   int blocks = 0;
-  if (slots_t<A, LPT, G, LK>(&blocks) < 0) {
+  const int n = slots_of(kernel, groups, per_sm_max, &blocks);
+  if (slots) return *slots = n;
+  if (n < 0) {
     const cudaError_t rc = cudaGetLastError();
     return rc != cudaSuccess ? (int)rc : (int)cudaErrorInvalidConfiguration;
   }
-  constexpr int groups = kBlockWarps / G;
   const long long need = ((long long)a.B + groups - 1) / groups;
   if (blocks > need) blocks = (int)need;
-  xdrop_kernel<A, LPT, G, LK><<<blocks, kBlockThreads, 0, s>>>(
+  kernel<<<blocks, kBlockThreads, 0, s>>>(
       a.TW, a.t_words, a.t_at, a.QW, a.q_words, a.q_at, a.t_len, a.q_len,
       a.order, a.next,
       a.B, a.W, a.xdrop, a.max_steps, a.score, a.t_end, a.q_end, a.steps);
   return (int)cudaGetLastError();
+}
+
+// Threads an extension takes in the grouped tile at band W (W / 16
+// rounded up to a power of two, at least 4), or 0 where the one-warp
+// tiles run it: the adaptive mode, the long key and W > kGroupedMaxW.
+// pallas_xdrop.grouped_tile is the same rule.
+int grouped_threads(int W, bool adaptive, bool long_key) {
+  if (adaptive || long_key || W > kGroupedMaxW) return 0;
+  int gs = 4;
+  while (kGroupedLpt * gs < W) gs *= 2;
+  return gs;
 }
 
 // The tile for band W: LPT lanes a thread (4, 8 or 16) and G warps an
@@ -577,24 +825,31 @@ void tile(int W, int* lpt, int* g) {
   *g = warps <= 1 ? 1 : warps <= 2 ? 2 : warps <= 4 ? 4 : 8;
 }
 
+// The tile for band W and the mode: the grouped tile where
+// grouped_threads says so, else LPT x G warps from tile(). The static
+// int32-key launches reach the one-warp tiles only at W > kGroupedMaxW
+// (LPT = 16), so they have no LPT = 4 or 8 instantiation.
 template <bool A, bool LK>
 int dispatch(const Args& a, cudaStream_t s, int* slots) {
-  int lpt = 0, g = 0, blocks = 0;
-  tile(a.W, &lpt, &g);
-  if (slots) {
-    if (lpt == 4) return *slots = slots_t<A, 4, 1, LK>(&blocks);
-    if (lpt == 8) return *slots = slots_t<A, 8, 1, LK>(&blocks);
-    if (g == 1) return *slots = slots_t<A, 16, 1, LK>(&blocks);
-    if (g == 2) return *slots = slots_t<A, 16, 2, LK>(&blocks);
-    if (g == 4) return *slots = slots_t<A, 16, 4, LK>(&blocks);
-    return *slots = slots_t<A, 16, 8, LK>(&blocks);
+  if constexpr (!A && !LK) {
+    const int gs = grouped_threads(a.W, A, LK);
+    if (gs > 0)
+      return run_grid(gs == 4   ? xdrop_grouped_kernel<4>
+                      : gs == 8 ? xdrop_grouped_kernel<8>
+                                : xdrop_grouped_kernel<16>,
+                      kBlockThreads / gs, kGroupedBlocksPerSm, a, s, slots);
   }
-  if (lpt == 4) return launch_t<A, 4, 1, LK>(a, s);
-  if (lpt == 8) return launch_t<A, 8, 1, LK>(a, s);
-  if (g == 1) return launch_t<A, 16, 1, LK>(a, s);
-  if (g == 2) return launch_t<A, 16, 2, LK>(a, s);
-  if (g == 4) return launch_t<A, 16, 4, LK>(a, s);
-  return launch_t<A, 16, 8, LK>(a, s);
+  int lpt = 0, g = 0;
+  tile(a.W, &lpt, &g);
+  Kernel k = g == 1   ? xdrop_kernel<A, 16, 1, LK>
+             : g == 2 ? xdrop_kernel<A, 16, 2, LK>
+             : g == 4 ? xdrop_kernel<A, 16, 4, LK>
+                      : xdrop_kernel<A, 16, 8, LK>;
+  if constexpr (A || LK) {
+    if (lpt == 4) k = xdrop_kernel<A, 4, 1, LK>;
+    if (lpt == 8) k = xdrop_kernel<A, 8, 1, LK>;
+  }
+  return run_grid(k, kBlockWarps / g, kBlocksPerSm, a, s, slots);
 }
 
 }  // namespace
@@ -632,8 +887,8 @@ extern "C" int bella_xdrop_launch(const void* TW, long long t_words,
 }
 
 // Extensions in flight at band W on the current device (the persistent
-// grid's warp groups) for the int32-key instantiation, or -1 when the
-// occupancy query fails.
+// grid's extension groups: warps, or the grouped tile's thread groups)
+// for the int32-key instantiation, or -1 when the occupancy query fails.
 extern "C" int bella_xdrop_slots(int W, int adaptive) {
   const Args a{nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, nullptr,
                nullptr, nullptr, 0, W, 0, 0, nullptr, nullptr, nullptr,

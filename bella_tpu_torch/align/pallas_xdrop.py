@@ -3,10 +3,11 @@
 Counterpart of ``bella_tpu/align/pallas_xdrop.py`` (the name is kept so
 the two are found side by side). The TPU kernel ``_kernel`` behind
 ``extend_batch_pallas_packed`` and ``extend_batch_pallas`` becomes the
-CUDA kernel ``csrc/xdrop.cu`` in its static mode: a warp per extension
-(a few at W > 512) with the band in registers, on a persistent grid that
-takes extensions longest first (see the source's note for what bounds it
-on the H100). ``extend_batch_packed`` and
+CUDA kernel ``csrc/xdrop.cu`` in its static mode: several extensions a
+warp at W <= 256 (``grouped_tile``), a warp per extension above (a few
+at W > 512), with the band in registers, on a persistent grid that takes
+extensions longest first (see the source's note for what bounds it on
+the H100). ``extend_batch_packed`` and
 ``extend_batch_chars`` keep the contracts of the two Pallas entries.
 Launches whose lengths and xdrop are below ``INT32_KEY_EXTENT`` run the
 kernel's int32-key instantiation; longer ones (to ``MAX_EXTENT``) its
@@ -43,6 +44,7 @@ INT32_KEY_EXTENT = 1 << 17
 MAX_EXTENT = 1 << 29
 # a step cap no extension reaches (t_len + q_len < 2 * MAX_EXTENT)
 NO_CAP = 2 * MAX_EXTENT
+GROUPED_MAX_W = 256        # widest band of the kernel's grouped tile
 _CHUNK = 128               # the compiled Pallas kernel's step granularity
 
 
@@ -134,9 +136,26 @@ def longest_first(t_len: torch.Tensor, q_len: torch.Tensor) -> torch.Tensor:
     return torch.argsort(total, descending=True, stable=True).to(torch.int32)
 
 
+def grouped_tile(W: int, adaptive: bool, long_key: bool) -> int:
+    """Threads an extension takes in the kernel's grouped tile at band W,
+    or 0 where its one-warp tiles run it. The grouped tile runs the
+    static mode's int32-key launches at W <= GROUPED_MAX_W: 16 band lanes
+    a thread, W / 16 threads an extension rounded up to a power of two
+    (at least 4), so a warp runs 32 / that many extensions at once. The
+    adaptive mode, the long key and wider bands keep a warp (or several)
+    an extension. csrc/xdrop.cu's grouped_threads is the same rule."""
+    if adaptive or long_key or W > GROUPED_MAX_W:
+        return 0
+    threads = 4
+    while 16 * threads < W:
+        threads *= 2
+    return threads
+
+
 def resident_extensions(W: int, adaptive: bool) -> int:
-    """Extensions the kernel runs at once at band W on the current CUDA
-    device (its persistent grid's warp groups)."""
+    """Extensions the kernel's int32-key instantiation runs at once at
+    band W on the current CUDA device (its persistent grid's extension
+    groups: warps, or the grouped tile's thread groups)."""
     from bella_tpu_torch.align import _build
 
     n = _build.xdrop_lib().bella_xdrop_slots(int(W), 1 if adaptive else 0)
@@ -233,6 +252,8 @@ def launch_streams(ts: Streams, qs: Streams, xdrop: int, W: int, cap: int,
     name = "launch.xdrop_adaptive" if adaptive else "launch.xdrop_static"
     count(name)
     count("xdrop.extensions", B)
+    count("xdrop.grouped_extensions",
+          B if grouped_tile(W, adaptive, long_key) else 0)
     if long_key:
         count(name + "_long_key")
     return out

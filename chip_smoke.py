@@ -269,9 +269,12 @@ def ptxas_summary() -> list:
     out, fn = [], None
     for line in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"xdrop_kernelILb(\d)ELi(\d+)ELi(\d+)ELb(\d)E", line)
+        grouped = re.search(r"xdrop_grouped_kernelILi(\d+)E", line)
         if "Compiling entry function" in line and m:
             fn = (f"xdrop<adaptive={m.group(1)}, LPT={m.group(2)}, "
                   f"G={m.group(3)}, long_key={m.group(4)}>")
+        elif "Compiling entry function" in line and grouped:
+            fn = f"xdrop_grouped<threads an extension={grouped.group(1)}>"
         elif "Compiling entry function" in line and "prep_kernel" in line:
             fn = "prep"
         elif fn and ("registers" in line or "spill" in line):
@@ -625,7 +628,9 @@ def phase_kernels(state: dict) -> None:
                                       with_steps=True)["steps"][0])
     ms = cuda_ms(lambda: P.extend_batch_packed(Tw, tl, Qw, ql, 25, band=128))
     state["step_ns"] = 1e6 * ms / steps
-    print(f"K1 one extension alone, W=128: {steps} steps in {ms:.3f} ms, "
+    print(f"K1 one extension alone, W=128 (grouped tile, "
+          f"{P.grouped_tile(128, False, False)} threads): {steps} steps in "
+          f"{ms:.3f} ms, "
           f"{state['step_ns']:.1f} ns a step")
     capped = random_batch(rng, 24, 3000)
     k1("max_steps=500 (cap 640)", capped, 256, max_steps=500)
@@ -2263,6 +2268,18 @@ def tail_ratio(steps, slots: int) -> float:
     return list_span(steps, slots) / even if even else 1.0
 
 
+def grouped_idle_pct(steps) -> float:
+    """The share, in %, of the group-steps of K1's grouped tile that its
+    groups spent waiting for a turn's end: an extension starts on a
+    turn's first half and the next takes over at the turn's end, so one
+    that ends after an odd count of antidiagonals waits one, and an empty
+    one a whole turn (2). A warp's groups left without work at a launch's
+    end are not counted."""
+    s = np.asarray(steps, np.int64)
+    idle = np.where(s == 0, 2, s & 1)
+    return 100.0 * float(idle.sum()) / max(1, int((s + idle).sum()))
+
+
 def phase_table(state: dict) -> list:
     import torch
 
@@ -2355,6 +2372,9 @@ def phase_table(state: dict) -> list:
         plain_shapes=f"first former batch: {T.shape[0]} extensions, kernel "
                      f"{sub_ms:.3f} ms",
         levels={k: lv[k] for k in ("bench", "demo")}, sample=sample,
+        grouped=dict(threads=P.grouped_tile(W1, False, False),
+                     one_step_ns=state["step_ns"],
+                     idle_pct=grouped_idle_pct(out1[3].cpu().numpy())),
     ))
     del ext, out1
     # K2: the adaptive tail of the capped-cascade bench run

@@ -8,7 +8,9 @@ by K1 and K2 on its materialised rows, on the same pairs: W 128, 256 and
 bases beside short ones), and a single pair. The pairs overlap on a
 common genome (3 % substitutions) with true seeds on both strands, so
 their extensions run deep into both streams, beside random pairs that
-drop at once.
+drop at once. K1's grouped tile (several extensions a warp at W <= 256)
+is held to the plain version directly, at the bands and batch sizes
+where its groups could go wrong.
 
 Every test takes the `card` fixture and skips without a CUDA card. The
 file imports no JAX; run it on the card with
@@ -150,3 +152,121 @@ def test_streams_match_prep_then_kernel_one_pair(card, adaptive):
     reads, pairs = _corpus(13, 20)
     got, want = _both(reads, pairs, np.array([0]), 128, adaptive)
     assert got.shape == (4, 2) and torch.equal(got, want)
+
+
+def _grouped_batch(seed: int, B: int, n: int = 2400):
+    """B extensions on one flat word stream that holds a random genome G
+    and the reverse complement of a copy of G with 3 % substitutions, in
+    six kinds by e % 6 (lengths up to n): G against the copy read
+    backwards and complemented, which matches and runs deep; the same the
+    other way round; G against itself, forwards (equal lengths, so it runs
+    to t_len + q_len) and complemented; G against an unrelated stretch,
+    which drops within a few antidiagonals; and lengths 0 and 1. So the
+    groups of one warp end on different steps, and every kind of
+    descriptor is read."""
+    rng = np.random.default_rng(seed)
+    N = 4 * n
+    g = rng.integers(0, 4, N)
+    m = g.copy()
+    r = rng.random(N) < 0.03
+    m[r] = (m[r] + 1) % 4
+    flat = np.concatenate([g, (3 - m)[::-1]])
+    words = P.pack_words(torch.from_numpy(flat[None, :])).reshape(-1)
+    ta, qa, tl, ql = [], [], [], []
+    for e in range(B):
+        kind = e % 6
+        s = int(rng.integers(0, N - n))
+        a, b = (int(x) for x in rng.integers(1, n, 2))
+        fwd, rc = 4 * s, 4 * (2 * N - 1 - s) + 3  # G[s..]; the copy's m[s..]
+        if kind == 0:
+            t, q = fwd, rc
+        elif kind == 1:
+            t, q = rc, fwd
+        elif kind == 2:
+            t, q, b = fwd, fwd, a
+        elif kind == 3:
+            t, q, b = fwd + 1, fwd + 1, a
+        elif kind == 4:
+            t, q = fwd, 4 * int(rng.integers(0, N - n))
+        else:
+            t, q = fwd, rc
+            a, b = (0, 0) if e % 12 == 5 else (1, int(rng.integers(0, 2)))
+        ta.append(t)
+        qa.append(q)
+        tl.append(a)
+        ql.append(b)
+
+    def streams(at, lens):
+        return P.Streams(words.cuda(), torch.tensor(at, dtype=torch.int64,
+                                                    device="cuda"),
+                         torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+    return streams(ta, tl), streams(qa, ql), n
+
+
+def _grouped_against_plain(B, W, xdrop=XDROP, cap=P.NO_CAP, seed=21):
+    """The kernel's launch (the grouped tile) and the plain version on the
+    same streams, with steps; the launch's grouped count; t_len + q_len."""
+    from bella_tpu_torch.utils import log as ulog
+
+    ts, qs, n = _grouped_batch(seed, B)
+    ulog.reset()
+    got = P.run_streams(ts, qs, xdrop, W, cap, False, longest=n,
+                        with_steps=True)
+    grouped = ulog.COUNTS.get("xdrop.grouped_extensions")
+    L = -(-n // 16) * 16
+    want = P.xdrop_plain(P.stream_rows(ts, L), ts.len, P.stream_rows(qs, L),
+                         qs.len, xdrop, W, cap, False, with_steps=True)
+    torch.cuda.synchronize()
+    return got, want, grouped, ts.len + qs.len
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B", [1, 13, 1027])
+@pytest.mark.parametrize("W", [64, 100, 128, 200, 256])
+def test_grouped_tile_matches_plain(card, W, B):
+    assert P.grouped_tile(W, False, False) > 0
+    got, want, grouped, total = _grouped_against_plain(B, W)
+    assert torch.equal(got, want)
+    assert grouped == B
+    if B > 13:
+        steps, ends = got[3], total - 1  # d runs 2 .. t_len + q_len
+        assert int((steps <= 1).sum()) > 0  # some end at once
+        assert bool(((steps == ends) & (ends > 2000)).any())  # some run out
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("W", [128, 256])
+def test_grouped_tile_matches_plain_with_a_binding_cap(card, W):
+    cap = P.static_step_cap(500)
+    got, want, _, _ = _grouped_against_plain(257, W, cap=cap, seed=22)
+    assert torch.equal(got, want)
+    assert int(got[3].max()) == cap
+
+
+@pytest.mark.card
+def test_grouped_tile_matches_plain_at_xdrop_zero(card):
+    # at xdrop 0 a pair whose first bases differ dies on its first
+    # antidiagonal, and one whose first bases match on its second (an odd
+    # antidiagonal's max lies below the best): groups of a warp end on
+    # either half of a turn
+    got, want, _, _ = _grouped_against_plain(515, 128, xdrop=0, seed=23)
+    assert torch.equal(got, want)
+    assert int((got[3] == 1).sum()) > 10 and int((got[3] == 2).sum()) > 10
+
+
+@pytest.mark.card
+def test_resident_extensions_count_groups(card):
+    """At W <= 256 the static launch's slots are its thread groups: the
+    same blocks an SM at every group size, 256 / group threads a block."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = set()
+    for W in (64, 100, 128, 200, 256):
+        gs = P.grouped_tile(W, False, False)
+        n = P.resident_extensions(W, False)
+        assert n % (sms * (256 // gs)) == 0, (W, gs, n)
+        per_sm.add(n // (sms * (256 // gs)))
+    assert len(per_sm) == 1 and per_sm.pop() >= 1
+    # the one-warp tiles: a warp an extension
+    assert P.grouped_tile(512, False, False) == 0
+    assert P.resident_extensions(512, False) % (sms * 8) == 0

@@ -317,3 +317,17 @@ def test_long_key_choice():
     with pytest.raises(ValueError, match="below"):
         P._check(T.expand(1, P.MAX_EXTENT // 16).contiguous(), n, T,
                  torch.zeros(1, dtype=torch.int32), XDROP, 128)
+
+
+@pytest.mark.parametrize("W,threads", [(64, 4), (100, 8), (128, 8),
+                                       (200, 16), (256, 16)])
+def test_grouped_tile_choice(W, threads):
+    """The static mode's int32-key launches at W <= 256 take the grouped
+    tile, W / 16 threads an extension rounded up to a power of two; the
+    adaptive mode, the long key and W >= 512 keep a warp an extension."""
+    assert P.grouped_tile(W, False, False) == threads
+    assert P.grouped_tile(W, True, False) == 0
+    assert P.grouped_tile(W, False, True) == 0
+    assert P.grouped_tile(W, True, True) == 0
+    for wide in (257, 384, 512, 1024, 2048):
+        assert P.grouped_tile(wide, False, False) == 0
