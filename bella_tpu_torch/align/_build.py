@@ -8,7 +8,9 @@ module is imported: the CPU tests import every module and never launch a
 kernel.
 
 Each wrapper counts its launches in ``utils/log.py``'s ``COUNTS``
-(``launch.<kernel>``) where it launches its kernel and nowhere else.
+(``launch.<kernel>``) where it launches its kernel and nowhere else; the
+reads' ragged pack (``launch.pack_ragged``) counts the reads it packs
+there too (``align.packed_reads``).
 """
 
 from __future__ import annotations
@@ -69,9 +71,11 @@ def _bind_xdrop(lib: ctypes.CDLL) -> None:
     lib.bella_prep_launch.argtypes = [vp, ll, vp, vp, vp, i, i, i,
                                       vp, vp, vp, vp, vp, vp, vp]
     lib.bella_prep_launch.restype = ctypes.c_int
+    lib.bella_pack_launch.argtypes = [vp, vp, i, ll, vp, vp]
+    lib.bella_pack_launch.restype = ctypes.c_int
 
 
 def xdrop_lib() -> ctypes.CDLL:
-    """The kernel library (csrc/xdrop.cu: K1 and K2, and K3), built on
-    first use."""
+    """The kernel library (csrc/xdrop.cu: K1 and K2, K3, and the reads'
+    ragged pack), built on first use."""
     return shlib.load("xdrop", lambda: build("xdrop.cu"), _bind_xdrop)

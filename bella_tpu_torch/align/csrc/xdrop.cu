@@ -1043,3 +1043,92 @@ extern "C" int bella_prep_launch(const void* words, long long n_words,
       (int*)seed_end_v);
   return (int)cudaGetLastError();
 }
+
+// Ragged pack (pack_ragged_kernel): the reads' ragged word stream, built on
+// the card from their codes, a byte a base, as the host's
+// pack_words_ragged (bella_tpu_torch/align/xdrop.py) builds it: each read
+// starts on a word boundary, 16 bases a word least significant first, and
+// the bases past its length are 0 ('A'). Each group of four codes
+// c0..c3 packs to (c0 | c1 << 2 | c2 << 4 | c3 << 6) & 0xFF, as the
+// host's byte combines do, so the words are the same for any byte value.
+//
+// Replaces no TPU kernel: bella_tpu packs on the host too
+// (bella_tpu/align/xdrop.py: pack_words_ragged). Added because the host
+// pack (a Python loop over the reads and four strided numpy passes over
+// the codes) kept the card idle for a third of a second a pass.
+//
+// What bounds it on the H100: bytes, the codes read once (a byte a base)
+// and the words written once (a quarter of that). One thread an output
+// word: it finds its read by a binary search over the word offsets
+// (L1-resident: a warp's threads walk the same path), then loads the 16
+// bytes from its read's source offset as five aligned 32-bit words (the
+// staging buffer is padded so that the last never reads past it), funnel
+// shifts them into four words of four codes, masks the bytes past the
+// read's length and writes one 32-bit word. Neighbouring threads read
+// neighbouring 16-byte runs and write neighbouring words; no shared
+// memory.
+
+namespace {
+
+constexpr int kPackThreads = 256;
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_ragged_kernel(const uint32_t* __restrict__ codes,
+                   const long long* __restrict__ off_w,
+                   const long long* __restrict__ src,
+                   const long long* __restrict__ lens, int R,
+                   long long n_words, uint32_t* __restrict__ words) {
+  const long long w = (long long)blockIdx.x * kPackThreads + threadIdx.x;
+  if (w >= n_words) return;
+  // the read whose words hold w: the last r with off_w[r] <= w (reads of
+  // no bases own no word, so off_w repeats and the last one is taken)
+  int lo = 0, hi = R - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(off_w + mid) <= w) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long j = w - __ldg(off_w + lo);
+  const long long m = __ldg(lens + lo) - 16 * j;  // bases of this word, > 0
+  const long long a = __ldg(src + lo) + 16 * j;   // byte of its first base
+  const long long i = a >> 2;
+  const int sh = 8 * (int)(a & 3);
+  uint32_t v[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) v[q] = __ldg(codes + i + q);
+  uint32_t out = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t x = __funnelshift_r(v[q], v[q + 1], sh);  // bases 4q .. 4q + 3
+    const long long left = m - 4 * q;
+    if (left < 4) x = left <= 0 ? 0u : x & ((1u << (8 * (int)left)) - 1u);
+    const uint32_t b = (x & 0xFFu) | ((x >> 8 & 0xFFu) << 2) |
+                       ((x >> 16 & 0xFFu) << 4) | ((x >> 24) << 6);
+    out |= (b & 0xFFu) << (8 * q);
+  }
+  words[w] = out;
+}
+
+}  // namespace
+
+// Launches the ragged pack on `stream`. Pointers are device pointers:
+// codes, the reads' codes a byte a base, 4-byte aligned, with at least 20
+// readable bytes past the last read's last base; meta (3, R + 1) int64,
+// rows off_w (each read's first word, then n_words), src (each read's
+// first code, then any) and lens (each read's length, then any). Writes
+// words (n_words,) uint32. Returns cudaGetLastError() after the launch.
+extern "C" int bella_pack_launch(const void* codes, const void* meta, int R,
+                                 long long n_words, void* words,
+                                 void* stream) {
+  if (R <= 0 || n_words <= 0) return (int)cudaSuccess;
+  const long long* m = (const long long*)meta;
+  const long long blocks = (n_words + kPackThreads - 1) / kPackThreads;
+  pack_ragged_kernel<<<(unsigned)blocks, kPackThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)codes, m, m + (R + 1), m + 2 * (R + 1), R, n_words,
+      (uint32_t*)words);
+  return (int)cudaGetLastError();
+}

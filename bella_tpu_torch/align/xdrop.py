@@ -8,7 +8,9 @@ drift predictor and the adaptive exactness tail, and under
 ``aligner_backend="jax"``, on its adaptive-band path (K2 at
 ``band_width`` on every pair), on one device or data-parallel over a
 shard group (its mesh branch); and the host helpers ``pad_reads`` and
-``pack_words``.
+``pack_words``. The reads' ragged words (``pack_words_ragged`` on the
+host) are packed on the card by ``launch_pack`` from the codes as they
+are, a byte a base.
 
 ``extend_batch`` is the adaptive-band extension (the band offset follows
 the running argmax) that ``bella_tpu`` runs as a ``lax.while_loop``. Here
@@ -189,8 +191,79 @@ def _download(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _stage_reads(reads, device):
+    """The read set put on a card for the ragged pack: one (3, R + 1)
+    int64 block, rows word offsets (then the word count), source offsets
+    (the ReadSet's offsets) and lengths (then 0); and, where the reads
+    hold a base, their codes as they are, a byte a base, in one copy,
+    padded so that the kernel's aligned loads stay inside (None
+    otherwise). Two pageable copies, so the host waits for each (counted
+    as sync.align). Returns (meta, codes, word count)."""
+    lens = reads.lengths.astype(np.int64)
+    off_w = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(-(-lens // 16), out=off_w[1:])
+    meta = _upload(np.stack([off_w, reads.offsets.astype(np.int64),
+                             np.append(lens, 0)]), device)
+    n_words = int(off_w[-1])
+    if not n_words:
+        return meta, None, 0
+    src = np.ascontiguousarray(reads.codes).astype(np.uint8, copy=False)
+    codes = torch.empty(len(src) + 32, dtype=torch.uint8, device=device)
+    codes[:len(src)].copy_(torch.from_numpy(src))
+    count("sync.align")
+    return meta, codes, n_words
+
+
+def launch_pack(meta, codes, n_words: int) -> torch.Tensor:
+    """The reads' ragged words, (n_words,) int32, packed on the card by
+    pack_ragged_kernel (csrc/xdrop.cu) from _stage_reads' block and codes,
+    on the current stream of their card: pack_words_ragged's words, bit
+    for bit. Counts the launch (launch.pack_ragged) and the reads it packs
+    (align.packed_reads). Raises if the library cannot be built or the
+    launch fails."""
+    import ctypes
+
+    from bella_tpu_torch.align import _build
+
+    if not (codes.is_cuda and meta.device == codes.device):
+        raise ValueError("launch_pack takes the block and the codes on one "
+                         "card")
+    if (meta.dim() != 2 or meta.shape[0] != 3 or meta.dtype != torch.int64
+            or not meta.is_contiguous() or codes.dtype != torch.uint8
+            or not codes.is_contiguous()):
+        raise ValueError("launch_pack takes _stage_reads' (3, R + 1) int64 "
+                         "block and uint8 codes")
+    lib = _build.xdrop_lib()
+    dev = codes.device
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bella_pack_launch(ptr(codes), ptr(meta), meta.shape[1] - 1,
+                                   n_words, ptr(words),
+                                   ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"ragged pack kernel launch failed: CUDA error {rc}")
+    count("launch.pack_ragged")
+    count("align.packed_reads", meta.shape[1] - 1)
+    return words
+
+
 def _upload_reads(reads, device) -> _Reads:
+    """The read set on `device` (_Reads). On a card its codes go up as
+    they are and launch_pack packs them there; elsewhere
+    pack_words_ragged packs them on the host."""
     with span("align.upload"):
+        if torch.device(device).type == "cuda":
+            meta, codes, n_words = _stage_reads(reads, device)
+            words = (launch_pack(meta, codes, n_words) if n_words else
+                     torch.zeros(1, dtype=torch.int32, device=meta.device))
+            del codes  # the staging goes before the first launch's tensors
+            R = reads.num_reads
+            return _Reads(words=words, off_w=meta[0, :R], lens=meta[2, :R])
         flat, off_w = pack_words_ragged(reads)
         if flat.size == 0:
             flat = np.zeros(1, np.uint32)

@@ -45,7 +45,10 @@ Phases (any failure exits nonzero and prints no result):
      through K2 (the adaptive exactness tail)
   6. main path on dataset D of scripts/crossval_large.sh (genome 4.6 Mbp
      seed 401; 23,000 reads, mean 6 kbp, 15 % error, seed 402), with its
-     anchors and K1's in-path time by band; its first pass as one launch
+     anchors and K1's in-path time by band; its reads' ragged words
+     packed on the card against pack_words_ragged, bit for bit, the pack
+     kernel timed against its bound and against the same words by
+     PyTorch ops on the card; its first pass as one launch
      against its former batches, as in 5
   7. adaptive: dataset D with aligner_backend="jax" (K2 at band_width on
      every pair, no cascade): D's detection anchors, its rows anchored,
@@ -115,8 +118,9 @@ Phases (any failure exits nonzero and prints no result):
      least time the card could take, at the main path's shapes (and the
      long-key instantiation at the long phase's), and the bench first
      pass as one launch (K2's row: dataset D on the adaptive backend, one
-     launch; K3's: D's first pass in its former batches); launches on
-     every main-path run, by shard on the multi-device runs
+     launch; K3's: D's first pass in its former batches; the ragged
+     pack's: D's reads, against the host's pack); launches on every
+     main-path run, by shard on the multi-device runs
 
 Every main-path run launches no K3 (K1 and K2 read the reads' words
 through descriptors) and one x-drop launch a cascade level.
@@ -763,6 +767,8 @@ def run_main(reads, config, label: str, state: dict, truth=None, mesh=None):
         bounds=[config.lower_freq, config.upper_freq],
         xdrop_extensions=ulog.COUNTS.get("xdrop.extensions", 0),
         syncs=ulog.COUNTS.get("sync.align", 0),
+        packed_reads=ulog.COUNTS.get("align.packed_reads", 0),
+        pack_launches=ulog.COUNTS.get("launch.pack_ragged", 0),
     )
     if mesh is not None:
         info.update(
@@ -894,10 +900,80 @@ def phase_demo(state: dict) -> None:
         raise AssertionError(f"demo anchors differ: got {got}, "
                              f"want {DEMO_ANCHORS}")
     print(f"demo anchors hold: {got}")
+    if (info["packed_reads"], info["pack_launches"]) != (reads.num_reads, 1):
+        raise AssertionError(f"demo: {info['packed_reads']} reads packed on "
+                             f"the card in {info['pack_launches']} launches, "
+                             f"want {reads.num_reads} in 1")
+    state["pack"] = pack_against_host(reads)
     # the first pass as one level against its former batches; their K3
     # calls give K3's row of the kernel table
     state["demo_prep_calls"] = level_against_batches(
         reads, res.pairs, BellaConfig(), "demo", state)
+
+
+def pack_against_host(reads) -> dict:
+    """The reads' ragged words packed on the card (_upload_reads' card
+    branch) against pack_words_ragged's, bit for bit (words, word offsets,
+    lengths); the pack kernel timed alone on the staged codes, the whole
+    upload, the host pack and the same words by PyTorch ops on the card
+    (torch_route_pack) beside it, and its least time: the codes read (a
+    byte a base) and the words written once, at HBM_BYTES_PER_S."""
+    import torch
+
+    from bella_tpu_torch.align import xdrop as X
+    from bella_tpu_torch.utils.measure import cuda_ms
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rd = X._upload_reads(reads, "cuda")
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    flat, off_w = X.pack_words_ragged(reads)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    same_words = (np.array_equal(rd.words.cpu().numpy(), flat.view(np.int32))
+                  and np.array_equal(rd.off_w.cpu().numpy(), off_w)
+                  and np.array_equal(rd.lens.cpu().numpy(), reads.lengths))
+    del rd
+    meta, codes, n_words = X._stage_reads(reads, "cuda")
+    ms = cuda_ms(lambda: X.launch_pack(meta, codes, n_words), reps=20)
+    bases = int(reads.lengths.sum())
+    torch_words = torch_route_pack(meta, codes, n_words, bases)
+    torch_same = torch.equal(torch_words, X.launch_pack(meta, codes, n_words))
+    del torch_words
+    torch_ms = cuda_ms(lambda: torch_route_pack(meta, codes, n_words, bases),
+                       reps=5)
+    bound, by = _bound_of(bases + 4 * n_words, 0)
+    info = dict(reads=reads.num_reads, bases=bases, words=n_words, ms=ms,
+                upload_ms=upload_ms, host_ms=host_ms, torch_ms=torch_ms,
+                torch_same=torch_same, bound_ms=bound, bound_by=by,
+                roofline_pct=100 * bound / ms, err=0 if same_words else 1)
+    print("card pack " + json.dumps(info), flush=True)
+    if not same_words:
+        raise AssertionError("the card's ragged words differ from "
+                             "pack_words_ragged's")
+    return info
+
+
+def torch_route_pack(meta, codes, n_words: int, bases: int):
+    """The ragged words by PyTorch ops on the card, from _stage_reads'
+    block and codes: each code scattered to its slot in its read's
+    16-aligned run of words, then pallas_xdrop.pack_words on the slots
+    (codes taken & 3). The alternative to pack_ragged_kernel that
+    pack_against_host times."""
+    import torch
+
+    from bella_tpu_torch.align import pallas_xdrop as P
+
+    dev = codes.device
+    off_w, src, lens = meta[0, :-1], meta[1, :-1], meta[2, :-1]
+    rid = torch.repeat_interleave(torch.arange(lens.numel(), device=dev),
+                                  lens, output_size=bases)
+    slot = (torch.arange(bases, device=dev) - src[rid]) + 16 * off_w[rid]
+    del rid
+    slots = torch.zeros(16 * n_words, dtype=torch.uint8, device=dev)
+    slots[slot] = codes[:bases]
+    return P.pack_words(slots.view(n_words, 16)).view(-1)
 
 
 def phase_adaptive(state: dict) -> None:
@@ -2465,8 +2541,28 @@ def phase_table(state: dict) -> list:
                 "ms", "plain_ms", "bound_ms", "bound_by", "err", "W",
                 "lengths")}
     rows[2]["launches"] = sum(rows[2]["launches_by_run"].values())
+    # the reads' ragged pack: dataset D's reads (phase 6), the plain
+    # version the host's pack_words_ragged
+    pk = state["pack"]
+    rows.append(dict(
+        name="pack_ragged", route="cuda",
+        source="bella_tpu_torch/align/csrc/xdrop.cu", replaces=None,
+        launches=None, max_abs_err=pk["err"], ms=pk["ms"],
+        plain_ms=pk["host_ms"], bound_ms=pk["bound_ms"],
+        bound_by=pk["bound_by"], library_ms=None,
+        shapes=f"dataset D: {pk['reads']} reads, {pk['bases']} bases, "
+               f"{pk['words']} words; the whole upload "
+               f"{pk['upload_ms']:.1f} ms; by PyTorch ops on the card "
+               f"{pk['torch_ms']:.3f} ms, equal: {pk['torch_same']}",
+        launches_by_run={label: run["pack_launches"]
+                         for label, run in state["runs"].items()},
+        packed_reads_by_run={label: run["packed_reads"]
+                             for label, run in state["runs"].items()},
+    ))
+    rows[3]["launches"] = sum(rows[3]["launches_by_run"].values())
     for r in rows:
-        what = "the extension prep" if r is rows[2] else "x-drop"
+        what = ("the extension prep" if r is rows[2] else "the ragged pack"
+                if r is rows[3] else "x-drop")
         print(f"kernel {r['name']}: {r['ms']:.3f} ms on the card, plain "
               f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['launches']} launches on the main "

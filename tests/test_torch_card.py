@@ -12,6 +12,12 @@ drop at once. K1's grouped tile (several extensions a warp at W <= 256)
 is held to the plain version directly, at the bands and batch sizes
 where its groups could go wrong.
 
+The reads' ragged words, packed on the card from their codes
+(_upload_reads' card branch, pack_ragged_kernel), are held bit for bit to
+the host's pack_words_ragged: ragged lengths around a word, a read of
+131,085 bases, and the first 512 reads of dataset D, on whose first pass
+K1 gives the same rows from either.
+
 Every test takes the `card` fixture and skips without a CUDA card. The
 file imports no JAX; run it on the card with
 
@@ -270,3 +276,62 @@ def test_resident_extensions_count_groups(card):
     # the one-warp tiles: a warp an extension
     assert P.grouped_tile(512, False, False) == 0
     assert P.resident_extensions(512, False) % (sms * 8) == 0
+
+
+def _pack_corpus(name: str):
+    """The reads of one pack case: lengths around a word's 16 bases (with
+    reads of no base among them), a read of 131,085 bases beside short
+    ones, or the first 512 reads of dataset D."""
+    rng = np.random.default_rng(31)
+    if name == "D512":
+        from bench_torch import demo_corpus
+
+        _, d, _ = demo_corpus()
+        n = 512
+        return ReadSet(d.names[:n], d.codes[:d.offsets[n]].copy(),
+                       d.offsets[:n + 1].copy())
+    lens = ([1, 15, 16, 17, 0, 31, 32, 33, 0, 2, 1] if name == "ragged"
+            else [7, 131_085, 33, 5000])
+    lens = np.array(lens, np.int64)
+    offsets = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    codes = rng.integers(0, 4, int(offsets[-1])).astype(np.uint8)
+    return ReadSet([f"r{i}" for i in range(len(lens))], codes, offsets)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["ragged", "long", "D512"])
+def test_card_pack_matches_host_pack(card, name):
+    from bella_tpu_torch.config import BellaConfig
+    from bella_tpu_torch.overlap.pairs import detect_overlaps
+    from bella_tpu_torch.utils import log as ulog
+
+    reads = _pack_corpus(name)
+    ulog.reset()
+    rd = X._upload_reads(reads, "cuda")
+    assert ulog.COUNTS["align.packed_reads"] == reads.num_reads
+    assert ulog.COUNTS["launch.pack_ragged"] == 1
+    flat, off_w = X.pack_words_ragged(reads)
+    host = X._Reads(torch.from_numpy(flat.view(np.int32).copy()).to(card),
+                    torch.from_numpy(off_w.astype(np.int64)).to(card),
+                    torch.from_numpy(reads.lengths.astype(np.int64)).to(card))
+    for f in ("words", "off_w", "lens"):
+        got, want = getattr(rd, f), getattr(host, f)
+        assert got.dtype == want.dtype and torch.equal(got, want), f
+    if name != "D512":
+        return
+    # K1's rows of the first pass, from either set of words
+    cfg = BellaConfig()
+    pairs = detect_overlaps(reads, cfg, "cuda")[0]
+    assert pairs.num_pairs > 100
+    lens = reads.lengths
+    pair_len = np.maximum(lens[pairs.read_h], lens[pairs.read_v])
+    sel = np.arange(pairs.num_pairs)
+
+    def first_pass(r):
+        return X._extend_pairs(r, pairs, sel, pair_len, cfg.xdrop,
+                               cfg.kmer_size, cfg.pallas_band, 0, False,
+                               cfg.align_batch)
+
+    got, want = first_pass(rd), first_pass(host)
+    assert np.array_equal(got, want) and int(got[0].max()) > 1000

@@ -15,7 +15,9 @@ plain version: each stream gathered from the reads' words by its read,
 start, direction and complement) equals bella_tpu's prep followed by the
 x-drop's plain version on bella_tpu's rows, steps included, for all four
 stream kinds, both strands, zero-length streams and the reads at both
-ends of the word stream; word rows read back through their descriptors; on the card a level splits
+ends of the word stream; word rows read back through their descriptors;
+the CPU's reads are packed on the host (pack_words_ragged) and count no
+reads packed on the card; on the card a level splits
 into a long-key and an int32-key launch only where its extensions need
 it. K3's launcher refuses CPU tensors, and a tensor on the card whose
 kernel cannot be built raises rather than taking the plain version.
@@ -330,6 +332,27 @@ def test_plain_prep_of_an_empty_batch():
     assert got["T"].shape == got["Q"].shape == (0, 4)
     for key in ("t_len", "q_len", "seed_end_h", "seed_end_v"):
         assert got[key].shape == (0,) and got[key].dtype == torch.int32
+
+
+def test_cpu_upload_packs_on_the_host(monkeypatch):
+    _, reads, _ = _case("k17")
+    calls = []
+
+    def spy(r):
+        calls.append(r)
+        return pack(r)
+
+    pack = X.pack_words_ragged
+    monkeypatch.setattr(X, "pack_words_ragged", spy)
+    ulog.reset()
+    rd = X._upload_reads(reads, "cpu")
+    flat, off_w = pack(reads)
+    assert calls == [reads]
+    assert torch.equal(rd.words, torch.from_numpy(flat.view(np.int32)))
+    assert torch.equal(rd.off_w, torch.from_numpy(off_w.astype(np.int64)))
+    assert torch.equal(rd.lens, torch.from_numpy(reads.lengths))
+    assert "align.packed_reads" not in ulog.COUNTS
+    assert "launch.pack_ragged" not in ulog.COUNTS
 
 
 class _OnCard(torch.Tensor):
